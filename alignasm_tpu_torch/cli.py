@@ -7,8 +7,9 @@ writes ``<input>.aln.paf``, ``<input>.aln.alt.paf`` and
 ``<input>.aln.all.paf``, byte-identical to ``python -m alignasm_tpu.cli``.
 It runs the CUDA kernels (``--engine cuda``, the only engine, named as in
 ``alignasm_tpu.cli``); without a CUDA device it raises.  The device path
-covers contigs of up to 256 vertices (``device_max_v=256``); larger ones
-solve natively.
+covers contigs of up to 8192 vertices (the default ``device_max_v``): the
+reverse-topological scan up to 256, the blocked solve above; larger
+contigs solve natively.
 """
 
 from __future__ import annotations
@@ -61,7 +62,6 @@ def run(argv=None, device="cuda") -> int:
         non_skip_linkable=args.non_skip_linkable,
         upgrade_mode=args.upgrade_mode,
         device_routing="always",
-        device_max_v=256,
     )
     t0 = time.perf_counter()
     out_p = output_paths(args.paf_loc)[0]

@@ -78,8 +78,11 @@ def _bind(lib) -> None:
     lib.aln_densify_scatter.argtypes = [i32, p, p, i64, i64, p, p]
     lib.aln_densify_wire16.argtypes = [i32, p, p, p, i32, i64, i64, i64, p, p]
     lib.aln_topo_scan_nxt8.argtypes = [i32, p, i64, i32, p, p]
+    lib.aln_blocked_dp_nxt16.argtypes = [i32, p, i64, i32, i32, p, p, p]
+    lib.aln_blocked_dp_scratch_words.argtypes = []
     for fn in (lib.aln_densify_scatter, lib.aln_densify_wire16,
-               lib.aln_topo_scan_nxt8):
+               lib.aln_topo_scan_nxt8, lib.aln_blocked_dp_nxt16,
+               lib.aln_blocked_dp_scratch_words):
         fn.restype = ctypes.c_int
     lib.aln_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aln_cuda_error_string.restype = ctypes.c_char_p

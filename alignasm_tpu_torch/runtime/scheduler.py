@@ -5,16 +5,18 @@ Counterpart of the native-plane device path of
 calls).  The C++ host plane (``alignasm_tpu.native``, shared with the JAX
 package) parses the PAF, builds each contig's DAG and exports one sparse
 wire per bucket; the device densifies the wire and runs one
-reverse-topological scan per contig (ops/dense.py), returning uint8 gate
-rows ``[nxt, fast, src]``; ``finish_bulk8`` chases each path in C++ and
-``write_results`` writes the three PAF files.  The device only decides
+reverse-topological scan per contig for buckets with V <= 256 (uint8 gate
+rows ``[nxt, fast, src]``) or the blocked tropical solve for 256 < V <=
+8192 (the same rows in int16) (ops/dense.py); ``finish_bulk8`` /
+``finish_bulk16`` chase each path in C++ and ``write_results`` writes the
+three PAF files.  The device only decides
 which contigs take the fast finish, so the files are byte-identical to the
 native engine's whatever it answers.  A host-plane failure (wire export,
 finish) degrades the affected contigs to the native solve with the reason
 in ``stats["device_error"]``; a kernel that fails to build, launch or run
 raises.
 
-This slice covers buckets with V <= 256 on one device.
+This slice covers buckets with V <= 8192 on one device.
 """
 
 from __future__ import annotations
@@ -30,12 +32,14 @@ from alignasm_tpu import native
 from alignasm_tpu.config import AlignasmConfig
 from alignasm_tpu_torch.ops.dense import (
     dense_solve_wire16_topo_nxt8, dense_solve_wire_topo_nxt8_ragged,
+    dense_solve_wire_topo_nxt16_blocked_ragged,
 )
 from alignasm_tpu_torch.ops.wire import (
     as_device, ragged_to_device, wire16_to_device,
 )
 
-MAX_V = 256  # uint8 gate rows; larger buckets need the blocked kernel
+MAX_V = 256  # the scan and uint8 gate rows; above it the blocked solve
+MAX_DEVICE_V = 8192  # a V = 16384 slab is 1 GB of int32 per contig
 
 
 def _check_supported(cfg: AlignasmConfig, src_paths) -> None:
@@ -54,17 +58,19 @@ def _check_supported(cfg: AlignasmConfig, src_paths) -> None:
         raise NotImplementedError(
             f"device_routing={cfg.device_routing!r}: the port only runs the "
             "device path; use alignasm_tpu.native.run for a host-only run")
-    if cfg.device_max_v > MAX_V:
+    if cfg.device_max_v > MAX_DEVICE_V:
         raise NotImplementedError(
-            f"device_max_v={cfg.device_max_v} > {MAX_V} needs the blocked "
-            "big-V kernel, not ported yet (ROADMAP.md: 'Blocked big-V "
-            "kernel'); set device_max_v=256")
+            f"device_max_v={cfg.device_max_v} > {MAX_DEVICE_V}: a bucket "
+            "of V = 16384 holds 1 GB of slab per contig and no corpus of "
+            "the repo reaches it (ROADMAP.md: 'Buckets above V = 8192'); "
+            f"set device_max_v <= {MAX_DEVICE_V}")
 
 
 def _device_cap(cfg) -> int:
-    """Vertex ceiling of the device engine (counterpart of the JAX
-    scheduler's _device_cap; _check_supported holds it to MAX_V)."""
-    return cfg.device_max_v
+    """Vertex ceiling of the device engine: cfg.device_max_v bounded by
+    32767, int16 topo positions in the gate rows (the JAX scheduler's
+    _device_cap; _check_supported holds it to MAX_DEVICE_V)."""
+    return min(cfg.device_max_v, 32767)
 
 
 def _eligible_mask(meta, cfg):
@@ -77,8 +83,27 @@ def _eligible_mask(meta, cfg):
 
 
 def _next_pow2(x: int) -> int:
-    """Padded batch or vertex count: the next power of two, at least 8."""
+    """Padded vertex count (or small-V batch): the next power of two, at
+    least 8."""
     return 1 << max(3, (x - 1).bit_length())
+
+
+def _pad_batch(realB: int, V: int) -> int:
+    """Padded batch of a bucket: the next power of two, at least 8 for
+    V <= 256; big-V buckets drop the floor (as the JAX scheduler does), so
+    a lone V = 8192 contig costs one 268 MB slab and one solve, not
+    eight."""
+    if V > MAX_V:
+        return 1 << (realB - 1).bit_length()
+    return _next_pow2(realB)
+
+
+def _blocked_bk(padB: int) -> int:
+    """Block size of the blocked solve: the JAX scheduler's rule, tuned on
+    a TPU and a placeholder here until the port's calibration sets it
+    (rows do not depend on it; PERF.md has both sizes' times on the
+    H100)."""
+    return 64 if padB == 1 else 32
 
 
 def _dense_buckets(order, n_v, dense_cells: int = 2**26,
@@ -143,9 +168,13 @@ def wire_to_device(kind: str, wire, device):
 
 
 def solve_bucket(kind: str, args, padB: int, V: int):
-    """(padB, V+2) uint8 gate rows of one exported bucket, on its device."""
+    """(padB, V+2) gate rows of one exported bucket, on its device: uint8
+    from the scan for V <= 256, int16 from the blocked solve above."""
     if kind == "wire16":
         return dense_solve_wire16_topo_nxt8(*args, B=padB, V=V)
+    if V > MAX_V:
+        return dense_solve_wire_topo_nxt16_blocked_ragged(
+            *args, B=padB, V=V, Bk=_blocked_bk(padB))
     return dense_solve_wire_topo_nxt8_ragged(*args, B=padB, V=V)
 
 
@@ -174,7 +203,7 @@ def _launch_buckets(buckets, n_edges, exporter, device, launches, stats):
     kernels propagate."""
     for V, idxs in buckets:
         realB = len(idxs)
-        padB = _next_pow2(realB)
+        padB = _pad_batch(realB, V)
         try:
             kind, wire, ok, nbytes = export_wire(
                 exporter, V, idxs, n_edges[idxs], padB)
@@ -237,7 +266,9 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
             t2 = time.perf_counter()
             sync_s += t2 - t1
             try:
-                n_fast, n_fb = exporter.finish_bulk8(idxs, dp, V)
+                finish = exporter.finish_bulk8 if dp.dtype == np.uint8 \
+                    else exporter.finish_bulk16  # int16 gate rows
+                n_fast, n_fb = finish(idxs, dp, V)
             except Exception as exc:  # host plane: degrade to native solve
                 stats["device_error"] = f"finish: {exc!r}"[:500]
                 cfinish_s += time.perf_counter() - t2

@@ -99,14 +99,18 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
 
 
 def test_kernel_wrappers_take_only_cuda_tensors():
-    from alignasm_tpu_torch.ops import cuda_densify, cuda_topo
+    from alignasm_tpu_torch.ops import cuda_blocked, cuda_densify, cuda_topo
 
     slabs = torch.full((2, 9, 8), tdense.INF32, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_topo.topo_scan_nxt8(slabs)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_densify.densify_ragged(torch.zeros((2, 8), dtype=torch.int32), 1, 8)
+    big = torch.full((1, 513, 512), tdense.INF32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_blocked.blocked_dp_nxt16(big, 32)
     assert cuda_topo.topo_scan_nxt8.launches == 0
+    assert cuda_blocked.blocked_dp_nxt16.launches == 0
 
 
 @pytest.fixture
@@ -140,6 +144,32 @@ def test_kernels_match_plain_on_the_card(cuda_device, V, density, seed, nv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("Bk", [32, 64])
+@pytest.mark.parametrize("V,density,seed,nv", [
+    (512, 0.08, 9, None),     # random DAG
+    (512, 0.0005, 4, None),   # mostly unreachable
+    (512, 0.05, 3, 300),      # padding past nv (dest mid-slab)
+    (1024, 0.02, 1, None),
+    (1024, 0.9, 2, 900),      # near-complete: deep tie sets, saturation
+])
+def test_blocked_kernel_matches_plain_on_the_card(cuda_device, V, density,
+                                                  seed, nv, Bk):
+    """The blocked solve kernel bit-equals its plain version, with a
+    padding slab (all INF32, dest = src = 0) behind the random ones."""
+    from alignasm_tpu_torch.ops import cuda_blocked
+
+    B = 3
+    rag = ragged_to_device(_rand_wire(B, V, density, seed, nv), cuda_device)
+    pad = torch.full((1, V + 1, V), tdense.INF32, dtype=torch.int32,
+                     device=cuda_device)
+    pad[0, V, :2] = 0
+    slabs = torch.cat([tdense.densify_wire_ragged(rag, B, V), pad])
+    rows = cuda_blocked.blocked_dp_nxt16(slabs, Bk)
+    assert torch.equal(rows, tdense.solve_slab_topo_nxt16_blocked(slabs, Bk))
+    assert rows[-1, V] == 1  # the padding slab: src = dest, fast
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", ["synth50", "synth_hard"])
 def test_cuda_slice_matches_goldens(cuda_device, tmp_path, name):
     """The main path through the kernels writes the committed goldens."""
@@ -151,14 +181,14 @@ def test_cuda_slice_matches_goldens(cuda_device, tmp_path, name):
     from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
     data = Path(__file__).resolve().parent / "data"
-    cfg = dataclasses.replace(DEFAULT_CONFIG, device_routing="always",
-                              device_max_v=256)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, device_routing="always")
     reset_launch_counts()
     solve_dataset_torch(None, cfg, src_paths=(str(data / f"{name}.paf"), None),
                         write_prefix=str(tmp_path / name), device=cuda_device)
     stats = solve_dataset_torch.last_stats
     assert "device_error" not in stats and stats["device"] > 0, stats
-    assert launch_counts()["topo_scan"] == stats["dense_buckets"]
+    counts = launch_counts()
+    assert counts["topo_scan"] + counts["blocked_dp"] == stats["dense_buckets"]
     for suf in ("", ".alt", ".all"):
         got = (tmp_path / f"{name}.aln{suf}.paf").read_bytes()
         assert got == (data / f"{name}.aln{suf}.paf").read_bytes(), suf

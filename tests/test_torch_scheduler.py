@@ -1,6 +1,7 @@
 """The port's end-to-end device path (alignasm_tpu_torch.runtime.scheduler)
 on the CPU: output files byte-equal to the committed goldens, to the
-native engine and to the JAX package's device engine; the
+native engine and to the JAX package's device engine, with the scan
+(V <= 256) and the blocked solve (256 < V <= 8192); the
 degrade-to-native contract; the guards of what the slice does not cover;
 and no JAX in the port's import graph.
 """
@@ -24,8 +25,7 @@ from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
 REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data"
-CFG = dataclasses.replace(DEFAULT_CONFIG, device_routing="always",
-                          device_max_v=256)
+CFG = dataclasses.replace(DEFAULT_CONFIG, device_routing="always")
 SUFFIXES = ("", ".alt", ".all")
 
 
@@ -108,33 +108,88 @@ def test_dense_buckets_merge_small_groups_up():
     assert vs == [8, 16, 32]
 
 
-def test_long_contigs_match_native_and_jax_engine(tmp_path):
-    """60 long contigs: a V = 256 bucket on the ragged wire, and contigs
-    over 256 vertices solved natively; files byte-equal to native.run and
-    to the JAX device engine with the same config."""
+def _matches_native_and_jax_engine(tmp_path, paf, cfg):
+    """The port's files byte-equal to native.run's and to the JAX device
+    engine's with the same config, and its device/fallback/native_direct
+    counts equal the JAX engine's.  Returns the port's stats."""
     from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
 
-    paf = tmp_path / "long.paf"
-    paf.write_text(generate_paf(n_contigs=60, seed=9,
-                                max_records_per_contig=180))
-    got, stats = _port(paf, tmp_path / "port")
-    assert got == _native(paf, tmp_path / "native")
+    got, stats = _port(paf, tmp_path / "port", cfg)
+    assert got == _native(paf, tmp_path / "native", cfg)
     assert stats["device"] > 0 and "device_error" not in stats, stats
-    assert 256 in stats["bucket_vs"] and stats["native_direct"] > 0, stats
-    solve_dataset_tpu(None, CFG, src_paths=(str(paf), None),
+    solve_dataset_tpu(None, cfg, src_paths=(str(paf), None),
                       write_prefix=str(tmp_path / "jax"))
     assert got == _outputs(tmp_path / "jax")
     jstats = solve_dataset_tpu.last_stats
     for key in ("device", "fallback", "native_direct"):
         assert stats[key] == jstats[key], (key, stats, jstats)
+    return stats
 
 
-def _degrades(tmp_path, monkeypatch, obj, name):
-    """Make ``obj.name`` (a host-plane step) raise, run the port, and check
-    that the failure is recorded with a warning while every contig is
-    still solved natively: the files stay byte-equal to native.run."""
+@pytest.mark.parametrize("device_max_v", [256, 8192])
+def test_long_contigs_match_native_and_jax_engine(tmp_path, device_max_v):
+    """60 long contigs: at device_max_v=256 a V = 256 bucket on the ragged
+    wire, contigs over 256 vertices solved natively; at the default 8192
+    all in one V = 512 blocked bucket (the merge pads the others up)."""
+    paf = tmp_path / "long.paf"
+    paf.write_text(generate_paf(n_contigs=60, seed=9,
+                                max_records_per_contig=180))
+    cfg = dataclasses.replace(CFG, device_max_v=device_max_v)
+    stats = _matches_native_and_jax_engine(tmp_path, paf, cfg)
+    if device_max_v == 256:
+        assert 256 in stats["bucket_vs"] and stats["native_direct"] > 0, stats
+    else:
+        assert 512 in stats["bucket_vs"] and stats["native_direct"] == 0, stats
+
+
+def _chain_corpus(*specs):
+    """Chain contigs of tests/test_scale.py, one per (segments, seed)."""
+    sys.path.insert(0, str(Path(__file__).parent))
+    from test_scale import _chain_contig
+
+    return "".join(_chain_contig(n, seed=s).replace("bigctg", f"bigctg{k}")
+                   for k, (n, s) in enumerate(specs))
+
+
+def test_chain_contigs_match_native_and_jax_engine(tmp_path):
+    """Two chain contigs of 600 and 1200 segments (over 512 records each,
+    so oversize for the native plane's small-contig path): one blocked
+    bucket, every contig on the device."""
+    paf = tmp_path / "chains.paf"
+    paf.write_text(_chain_corpus((600, 11), (1200, 23)))
+    stats = _matches_native_and_jax_engine(tmp_path, paf, CFG)
+    assert max(stats["bucket_vs"]) > 256 and stats["native_direct"] == 0, stats
+    assert stats["device"] + stats["fallback"] == 2, stats
+
+
+@pytest.mark.parametrize("realB,V,padB", [
+    (1, 8192, 1), (3, 4096, 4), (3, 64, 8), (1, 256, 8), (9, 512, 16),
+])
+def test_pad_batch(realB, V, padB):
+    """A power of two, at least 8 only for V <= 256: a lone big contig
+    costs one slab, not eight."""
+    assert scheduler._pad_batch(realB, V) == padB
+
+
+@pytest.mark.parametrize("device_max_v,cap", [
+    (256, 256), (8192, 8192), (40000, 32767),
+])
+def test_device_cap_bounds_int16_rows(device_max_v, cap):
+    """The vertex cap is device_max_v bounded by the int16 rows' 32767,
+    as the JAX scheduler's."""
+    from alignasm_tpu.runtime.scheduler import _device_cap
+
+    cfg = dataclasses.replace(CFG, device_max_v=device_max_v)
+    assert scheduler._device_cap(cfg) == cap == _device_cap(cfg)
+
+
+def _degrades(tmp_path, monkeypatch, obj, name, text=None):
+    """Make ``obj.name`` (a host-plane step) raise, run the port on
+    ``text`` (a small corpus by default), and check that the failure is
+    recorded with a warning while every contig is still solved natively:
+    the files stay byte-equal to native.run."""
     paf = tmp_path / "degrade.paf"
-    paf.write_text(generate_paf(n_contigs=8, seed=5))
+    paf.write_text(text or generate_paf(n_contigs=8, seed=5))
 
     def boom(*a, **k):
         raise RuntimeError("simulated host-plane failure")
@@ -154,9 +209,14 @@ def test_device_failure_degrades_to_native_solve(tmp_path, monkeypatch):
     _degrades(tmp_path, monkeypatch, scheduler, "export_wire")
 
 
-def test_finish_failure_degrades_to_native_solve(tmp_path, monkeypatch):
-    """A failing C++ finish degrades its contigs to the native solve."""
-    _degrades(tmp_path, monkeypatch, native.GraphExporter, "finish_bulk8")
+@pytest.mark.parametrize("finish", ["finish_bulk8", "finish_bulk16"])
+def test_finish_failure_degrades_to_native_solve(tmp_path, monkeypatch,
+                                                 finish):
+    """A failing C++ finish degrades its contigs to the native solve: the
+    uint8 rows' finish on small contigs, the int16 rows' on a chain
+    contig in a V = 1024 blocked bucket."""
+    text = _chain_corpus((600, 11)) if finish == "finish_bulk16" else None
+    _degrades(tmp_path, monkeypatch, native.GraphExporter, finish, text)
 
 
 class _FakeLib:
@@ -193,8 +253,7 @@ def test_kernel_failure_raises(tmp_path, monkeypatch, failure):
 
 
 @pytest.mark.parametrize("change,src_paths,needle", [
-    (dict(device_max_v=512), True, "blocked big-V kernel"),
-    (dict(device_max_v=8192), True, "blocked big-V kernel"),
+    (dict(device_max_v=16384), True, "Buckets above V = 8192"),
     (dict(device_routing="auto"), True, "calibration"),
     (dict(device_routing="never"), True, "native.run"),
     ({}, False, "Python-plane fallback"),
@@ -223,7 +282,8 @@ def test_port_never_imports_jax(tmp_path):
     code = (
         "import sys\n"
         "from alignasm_tpu_torch import cli\n"
-        "from alignasm_tpu_torch.ops import cuda_densify, cuda_topo, dense, wire\n"
+        "from alignasm_tpu_torch.ops import (cuda_blocked, cuda_densify,\n"
+        "                                    cuda_topo, dense, wire)\n"
         f"assert cli.run([{str(paf)!r}], device='cpu') == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(\n"
         "    ('jax.', 'alignasm_tpu.runtime')))\n"
