@@ -6,21 +6,31 @@
 writes ``<input>.aln.paf``, ``<input>.aln.alt.paf`` and
 ``<input>.aln.all.paf``, byte-identical to ``python -m alignasm_tpu.cli``.
 It runs the CUDA kernels (``--engine cuda``, the only engine, named as in
-``alignasm_tpu.cli``); without a CUDA device it raises.  The device path
-covers contigs of up to 8192 vertices (the default ``device_max_v``): the
-reverse-topological scan up to 256, the blocked solve above; larger
-contigs solve natively.
+``alignasm_tpu.cli``); without a CUDA device it raises.  The native plane
+covers contigs of up to 8192 vertices on the device (the default
+``device_max_v``): the reverse-topological scan up to 256, the blocked
+solve above; larger contigs solve natively.  When the native host plane
+fails (NativeError), the command degrades visibly to the Python plane
+on the parsed PAF, as ``alignasm_tpu.cli`` does.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
-from alignasm_tpu.cli import output_paths
-from alignasm_tpu.config import DEFAULT_CONFIG
+from alignasm_tpu_torch.config import DEFAULT_CONFIG
+
+
+def output_paths(paf_loc: str):
+    """The three output paths of ``paf_loc`` (copy of
+    ``alignasm_tpu.cli.output_paths``)."""
+    base = os.path.abspath(paf_loc)
+    root, _ext = os.path.splitext(base)
+    return root + ".aln.paf", root + ".aln.alt.paf", root + ".aln.all.paf"
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -48,7 +58,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def run(argv=None, device="cuda") -> int:
     """The command line on ``argv``, its engine on ``device`` (the command
     line always runs on CUDA)."""
-    from alignasm_tpu import native
+    from alignasm_tpu_torch import native
+    from alignasm_tpu_torch.io.paf import merge_alt_paf, read_paf, write_outputs
     from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
     args = build_arg_parser().parse_args(argv)
@@ -64,21 +75,36 @@ def run(argv=None, device="cuda") -> int:
         device_routing="always",
     )
     t0 = time.perf_counter()
-    out_p = output_paths(args.paf_loc)[0]
+    out_p, alt_p, all_p = output_paths(args.paf_loc)
     try:
         solve_dataset_torch(None, cfg, src_paths=(args.paf_loc, args.alt or None),
                             write_prefix=out_p[: -len(".aln.paf")],
                             device=device)
+        stats = solve_dataset_torch.last_stats
+        n_ctg, n_rec = stats.get("n_contigs", 0), stats.get("n_records", 0)
     except native.NativeError as exc:
-        print(f"alignasm_tpu_torch: {exc}", file=sys.stderr)
-        return 1
-    stats = solve_dataset_torch.last_stats
+        print(f"native host plane unavailable ({exc}); degrading to the "
+              f"Python plane", file=sys.stderr)
+        dataset = read_paf(args.paf_loc)
+        if args.alt:
+            merge_alt_paf(dataset, args.alt, cfg.alt_baseline)
+        outs, alt_outs, max_outs = solve_dataset_torch(dataset, cfg,
+                                                       device=device)
+        stats = solve_dataset_torch.last_stats
+        stats["native_error"] = str(exc)[:500]
+        with open(out_p, "w") as fh:
+            write_outputs(dataset, outs, fh)
+        with open(alt_p, "w") as fh:
+            write_outputs(dataset, alt_outs, fh)
+        with open(all_p, "w") as fh:
+            write_outputs(dataset, max_outs, fh, name_suffix_counts=True)
+        n_ctg = len(dataset.contigs)
+        n_rec = sum(len(c) for c in dataset.contigs)
     if args.progress:
         print(f"device engine stats: {stats}")
     elapsed = time.perf_counter() - t0
-    n_ctg = stats.get("n_contigs", 0)
     print("Write output PAF file")
-    print(f"{n_ctg} contigs, {stats.get('n_records', 0)} records "
+    print(f"{n_ctg} contigs, {n_rec} records "
           f"in {elapsed:.2f}s ({n_ctg / elapsed:.1f} contigs/s)")
     return 0
 

@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels in ``alignasm_tpu_torch/csrc``.
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds).  The library lives in ``alignasm_tpu_torch/build/``, named by a
+Each source compiles with its own ``nvcc``, all started together, and
+the objects link into one shared library with a plain C interface,
+loaded with ctypes (no PyTorch headers, so a build takes seconds).  The library lives in ``alignasm_tpu_torch/build/``, named by a
 hash of the sources and flags, so a changed source builds anew and an
 unchanged one is reused.  It builds at first use, never at import.
 """
@@ -21,8 +21,9 @@ import time
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "build"
+# no fast math: dense_sp.cu's f32 key needs IEEE division
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -54,22 +55,36 @@ def library_path() -> pathlib.Path:
     return _BUILD / f"libaln_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the first failure's
+    stderr."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    errs = [p.communicate()[1] for p in procs]  # waits for every one
+    for p, err in zip(procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err[-8000:]}")
+
+
 def _compile(out: pathlib.Path) -> None:
     global build_seconds
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    tag = f"tmp.{os.getpid()}"
+    tmp = out.with_suffix(f".so.{tag}")
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [_BUILD / f"{p.stem}.{out.stem}.{tag}.o" for p in srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
     try:
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(srcs, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
         os.replace(tmp, out)  # atomic: a concurrent process sees all or none
     finally:
-        if tmp.exists():
-            tmp.unlink()
+        for f in [tmp, *objs]:
+            if f.exists():
+                f.unlink()
     build_seconds = time.perf_counter() - t0
 
 
@@ -80,9 +95,14 @@ def _bind(lib) -> None:
     lib.aln_topo_scan_nxt8.argtypes = [i32, p, i64, i32, p, p]
     lib.aln_blocked_dp_nxt16.argtypes = [i32, p, i64, i32, i32, p, p, p]
     lib.aln_blocked_dp_scratch_words.argtypes = []
+    lib.aln_sweep_dense.argtypes = [i32, p, p, p, i32, i64, i32, i32, p, p]
+    lib.aln_relax32.argtypes = [i32, p, p, p, p, p, p, i64, i64, i32, i32,
+                                p, p]
+    lib.aln_dense_sp.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, p, p]
     for fn in (lib.aln_densify_scatter, lib.aln_densify_wire16,
                lib.aln_topo_scan_nxt8, lib.aln_blocked_dp_nxt16,
-               lib.aln_blocked_dp_scratch_words):
+               lib.aln_blocked_dp_scratch_words, lib.aln_sweep_dense,
+               lib.aln_relax32, lib.aln_dense_sp):
         fn.restype = ctypes.c_int
     lib.aln_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aln_cuda_error_string.restype = ctypes.c_char_p

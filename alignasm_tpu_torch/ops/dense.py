@@ -1,9 +1,10 @@
 """Device solve of the native exporter's wires: densify, then the
 reverse-topo scan (V <= 256, uint8 gate rows) or the blocked tropical
-solve (256 < V <= 8192, int16 gate rows).
+solve (256 < V <= 8192, int16 gate rows); and the Python plane's dense
+sweep solve (``dense_solve_batch``, ``dense_solve_slabs``).
 
-PyTorch counterpart of ``alignasm_tpu/ops/dense.py`` for the main path.
-The layout contract is the
+PyTorch counterpart of ``alignasm_tpu/ops/dense.py``.
+The wire layout contract is the
 same one the JAX package reads (export.cc:aln_export_wire16 /
 aln_export_wire_ragged): a contig is a (V+1, V) int32 slab, cells
 ``score | anom << ANOM_SHIFT`` (INF32 = no edge), row V holds
@@ -13,7 +14,8 @@ padding entries point at.
 Each function has a plain PyTorch version here.  The public entry points
 take the plain path for tensors on the CPU and launch the hand-written
 CUDA kernels (ops/cuda_densify.py, ops/cuda_topo.py, ops/cuda_blocked.py)
-for tensors on a CUDA device; there is no fallback from one to the other.
+for tensors on a CUDA device (the sweep solve: ops/cuda_sweep.py); there
+is no fallback from one to the other.
 
 Every packed value lies in [0, 2^30], so ``>>`` (an arithmetic shift in
 torch) is exact where the JAX package uses a logical shift, and every
@@ -22,6 +24,7 @@ sum below stays under 2^31 (see the notes at each step).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INF32 = 2**30
@@ -293,6 +296,152 @@ def solve_slab_topo_nxt16_blocked(slabs, Bk: int):
     nxt_enc = torch.where(nxt < 0, dest[:, None].to(torch.int32), nxt)
     tail = torch.stack([fast.to(torch.int32), src.to(torch.int32)], 1)
     return torch.cat([nxt_enc, tail], 1).to(torch.int16)
+
+
+DENSE_ROWS = ("d_s", "d_a", "floor_a", "cnt_tot", "cnt_min")
+
+
+def _fixed_point(step, state, n_sweeps: int):
+    """``n_sweeps`` Jacobi sweeps ``state = step(state)`` (a tuple of
+    tensors), stopped once a sweep changes nothing: every later sweep
+    would return the same state, so the result is the one after all
+    ``n_sweeps``."""
+    for _ in range(n_sweeps):
+        new = step(state)
+        if all(torch.equal(x, y) for x, y in zip(new, state)):
+            break
+        state = new
+    return state
+
+
+def solve_one(ws, wa, edge, dest, n_sweeps: int):
+    """Plain form of ``_solve_one`` (alignasm_tpu/ops/dense.py:581),
+    batched over (B, V, V) score / anomaly matrices and an edge mask:
+    Jacobi sweeps of the lex-min (sum, anom) to ``dest``, the anomaly
+    floor, and the walk count and count of min walks saturated at
+    COUNT_SAT, each loop ``n_sweeps`` sweeps.  Returns (B, 5, V) int32
+    ``[d_s, d_a, floor_a, cnt_tot, cnt_min]``; the int32 arithmetic is the
+    JAX package's (sums wrap as there)."""
+    B, V, _ = ws.shape
+    dev = ws.device
+    vidx = torch.arange(V, dtype=torch.int32, device=dev)
+    on_dest = vidx[None, :] == dest.to(torch.int32)[:, None]
+    inf = torch.tensor(INF32, dtype=torch.int32, device=dev)
+    s0 = torch.where(on_dest, 0, inf)
+
+    def sweep(st):
+        s, a = st
+        cs = torch.where(edge, ws + s[:, None, :], inf)
+        m1 = cs.amin(2)
+        on = edge & (cs == m1[:, :, None])
+        m2 = torch.where(on, wa + a[:, None, :], inf).amin(2)
+        better = ((m1 < s) | ((m1 == s) & (m2 < a))) & (m1 < INF32)
+        return torch.where(better, m1, s), torch.where(better, m2, a)
+
+    s, a = _fixed_point(sweep, (s0, torch.zeros_like(s0)), n_sweeps)
+
+    def fsweep(st):
+        c = torch.where(edge, wa + st[0][:, None, :], inf)
+        return (torch.minimum(st[0], c.amin(2)),)
+
+    (fa,) = _fixed_point(fsweep, (s0,), n_sweeps)
+    base = on_dest.to(torch.int32)
+
+    def counts(mask):
+        def csweep(st):
+            tot = torch.where(mask, st[0][:, None, :], 0).sum(
+                2, dtype=torch.int32)
+            return ((base + tot).clamp_max(COUNT_SAT),)
+
+        return _fixed_point(csweep, (base,), n_sweeps)[0]
+
+    cnt_tot = counts(edge)
+    ach = edge & (s[:, None, :] < INF32) \
+        & (ws + s[:, None, :] == s[:, :, None]) \
+        & (wa + a[:, None, :] == a[:, :, None])
+    cnt_min = counts(ach)
+    return torch.stack([s, a, fa, cnt_tot, cnt_min], 1)
+
+
+def solve_slabs(packed, n_sweeps: int):
+    """Plain form of ``solve_slab`` (alignasm_tpu/ops/dense.py:646),
+    batched: (B, V+1, V) packed slabs -> (B, 2V+4) int32 rows
+    ``[d_s, d_a, floor_a@src, cnt_tot@src, cnt_min@src, src]``; a value
+    at ``src`` is 0 where src lies outside the slab (the JAX masked
+    sum)."""
+    B, V1, V = packed.shape
+    wsa = packed[:, :V]
+    dest = packed[:, V, 0]
+    src = packed[:, V, 1]
+    # (x >> 28) & 0xF is the logical shift for any int32 bit pattern
+    out5 = solve_one(wsa & _SCORE_MASK, (wsa >> ANOM_SHIFT) & 0xF,
+                     wsa != INF32, dest, n_sweeps)
+    at_src = torch.arange(V, device=packed.device)[None, :] == src[:, None]
+    picks = torch.where(at_src[:, None, :], out5[:, 2:], 0).sum(
+        2, dtype=torch.int32)
+    return torch.cat([out5[:, 0], out5[:, 1], picks, src[:, None]], 1)
+
+
+def dense_solve_batch(ws, wa, dest, n_sweeps: int):
+    """Batched (B, V, V) dense solve (counterpart of
+    alignasm_tpu/ops/dense.py:564): ``ws``/``wa`` int32 score / anomaly
+    matrices, INF32 in ``ws`` where no edge exists, ``dest`` (B,) int32
+    -> (B, 5, V) int32 ``[d_s, d_a, floor_a, cnt_tot, cnt_min]``.  CPU
+    tensors take the plain path, CUDA tensors the sweep kernel."""
+    if _on_cuda(ws):
+        from alignasm_tpu_torch.ops import cuda_sweep
+
+        return cuda_sweep.sweep_dense_batch(ws, wa, dest, n_sweeps)
+    return solve_one(ws, wa, ws < INF32, dest, n_sweeps)
+
+
+def dense_solve_slabs(packed, n_sweeps: int):
+    """The sweep solve on (B, V+1, V) packed slabs -> (B, 2V+4) int32
+    rows (counterpart of ``dense_solve_slabs_pallas``,
+    alignasm_tpu/ops/dense.py:674, without its batch padding to 8).  CPU
+    tensors take the plain path, CUDA tensors the sweep kernel."""
+    if _on_cuda(packed):
+        from alignasm_tpu_torch.ops import cuda_sweep
+
+        return cuda_sweep.sweep_dense_slabs(packed, n_sweeps)
+    return solve_slabs(packed, n_sweeps)
+
+
+def unpack_dense(stacked_row):
+    """Per-contig dict view of one (5, V) stacked dense result (the
+    finish_contig contract)."""
+    return {k: stacked_row[j] for j, k in enumerate(DENSE_ROWS)}
+
+
+def pack_dense_bucket(chunk, V: int):
+    """Host packing of a bucket into (B, V, V) int32 matrices (copy of
+    alignasm_tpu/ops/dense.py:pack_dense_bucket): ``chunk`` is a list of
+    (contig index, PackedGraph).  Returns (ws, wa, dests) numpy arrays,
+    or None if a contig has parallel edges (one dense cell holds one
+    edge; the sparse kernel takes the bucket then)."""
+    B = len(chunk)
+    bs, us, vs, ss, as_ = [], [], [], [], []
+    dests = np.empty((B,), np.int32)
+    for b, (_i, pg) in enumerate(chunk):
+        n_e = len(pg.eu)
+        if n_e:
+            keys = pg.eu.astype(np.int64) * V + pg.ev
+            if len(np.unique(keys)) != n_e:
+                return None
+        bs.append(np.full(n_e, b, np.int32))
+        us.append(pg.eu)
+        vs.append(pg.ev)
+        ss.append(pg.es.astype(np.int32))
+        as_.append(pg.ea)
+        dests[b] = pg.g.dest
+    ws = np.full((B, V, V), INF32, np.int32)
+    wa = np.zeros((B, V, V), np.int32)
+    b = np.concatenate(bs) if bs else np.empty(0, np.int32)
+    u = np.concatenate(us) if us else np.empty(0, np.int32)
+    v = np.concatenate(vs) if vs else np.empty(0, np.int32)
+    ws[b, u, v] = np.concatenate(ss) if ss else []
+    wa[b, u, v] = np.concatenate(as_) if as_ else []
+    return ws, wa, dests
 
 
 def _on_cuda(t) -> bool:

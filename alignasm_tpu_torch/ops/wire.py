@@ -1,6 +1,7 @@
 """Host-to-device transport of the native exporter's wires.
 
-The exporter (alignasm_tpu/native, shared with the JAX package) writes
+The exporter (alignasm_tpu_torch/native, the port's copy of the JAX
+package's C++ host plane) writes
 numpy arrays; these functions move them to ``device`` as the tensors
 ops/dense.py takes.  The u16 streams of the 16-bit wire travel as their
 raw 2 bytes (an int16 view, since PyTorch has few uint16 ops), so the

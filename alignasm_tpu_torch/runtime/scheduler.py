@@ -1,10 +1,12 @@
 """Bucket scheduler of the device engine on PyTorch.
 
-Counterpart of the native-plane device path of
-``alignasm_tpu/runtime/scheduler.py`` (``_solve_tpu_native`` and what it
-calls).  The C++ host plane (``alignasm_tpu.native``, shared with the JAX
-package) parses the PAF, builds each contig's DAG and exports one sparse
-wire per bucket; the device densifies the wire and runs one
+Counterpart of ``alignasm_tpu/runtime/scheduler.py:solve_dataset_tpu``:
+its two host planes, each feeding the device kernels.
+
+The native plane (``src_paths`` given; ``_solve_tpu_native`` and what it
+calls there): the C++ host plane (``alignasm_tpu_torch.native``, the
+port's copy of the JAX package's) parses the PAF, builds each contig's
+DAG and exports one sparse wire per bucket; the device densifies the wire and runs one
 reverse-topological scan per contig for buckets with V <= 256 (uint8 gate
 rows ``[nxt, fast, src]``) or the blocked tropical solve for 256 < V <=
 8192 (the same rows in int16) (ops/dense.py); ``finish_bulk8`` /
@@ -14,9 +16,18 @@ which contigs take the fast finish, so the files are byte-identical to the
 native engine's whatever it answers.  A host-plane failure (wire export,
 finish) degrades the affected contigs to the native solve with the reason
 in ``stats["device_error"]``; a kernel that fails to build, launch or run
-raises.
+raises.  It covers buckets with V <= 8192 on one device.
 
-This slice covers buckets with V <= 8192 on one device.
+The Python plane (``src_paths=None``, a parsed ``dataset``; the JAX
+package's test and degrade plane): per contig ``build_graph`` ->
+``pack_graph`` in Python, buckets of ``batch_size`` contigs sorted by
+(vertices, edges), each solved by the dense sweep solve (V <=
+``dense_max_v``, ops/dense.py), the int32 sparse relaxation
+(ops/relax32.py) or, when path sums may pass int32, the int64 one
+(ops/relax.py); then ``finish_contig``, or ``finish_contig_exact`` on
+``Fallback``.  A ``NativeError`` of the native plane degrades to it when
+a ``dataset`` was given, with a RuntimeWarning and the reason in
+``stats["native_error"]``.
 """
 
 from __future__ import annotations
@@ -28,8 +39,8 @@ import warnings
 import numpy as np
 import torch
 
-from alignasm_tpu import native
-from alignasm_tpu.config import AlignasmConfig
+from alignasm_tpu_torch import native
+from alignasm_tpu_torch.config import AlignasmConfig
 from alignasm_tpu_torch.ops.dense import (
     dense_solve_wire16_topo_nxt8, dense_solve_wire_topo_nxt8_ragged,
     dense_solve_wire_topo_nxt16_blocked_ragged,
@@ -42,13 +53,9 @@ MAX_V = 256  # the scan and uint8 gate rows; above it the blocked solve
 MAX_DEVICE_V = 8192  # a V = 16384 slab is 1 GB of int32 per contig
 
 
-def _check_supported(cfg: AlignasmConfig, src_paths) -> None:
-    """Raise NotImplementedError for what this slice does not cover yet,
-    naming the ROADMAP.md item that will."""
-    if src_paths is None:
-        raise NotImplementedError(
-            "the Python host plane (src_paths=None) is not ported yet "
-            "(ROADMAP.md: 'Python-plane fallback')")
+def _check_supported(cfg: AlignasmConfig) -> None:
+    """Raise NotImplementedError for what the native plane does not cover
+    yet, naming the ROADMAP.md item that will."""
     if cfg.device_routing == "auto":
         raise NotImplementedError(
             "device_routing='auto' needs the port's own calibration; the "
@@ -57,7 +64,7 @@ def _check_supported(cfg: AlignasmConfig, src_paths) -> None:
     if cfg.device_routing != "always":
         raise NotImplementedError(
             f"device_routing={cfg.device_routing!r}: the port only runs the "
-            "device path; use alignasm_tpu.native.run for a host-only run")
+            "device path; use alignasm_tpu_torch.native.run for a host-only run")
     if cfg.device_max_v > MAX_DEVICE_V:
         raise NotImplementedError(
             f"device_max_v={cfg.device_max_v} > {MAX_DEVICE_V}: a bucket "
@@ -346,25 +353,235 @@ def _solve_torch_native(cfg: AlignasmConfig, src_paths, write_prefix, device,
     return result
 
 
-def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
-                        write_prefix=None, *, device):
-    """Device engine on PyTorch: solve every contig of ``src_paths =
-    (paf, alt_or_None)`` with the native host plane and the device
-    kernels on ``device`` ("cpu" runs the plain PyTorch versions, "cuda"
-    the CUDA kernels; a CUDA device that is not available raises).
+def _fits32(pg) -> bool:
+    """int32 eligibility of a packed contig (the JAX plane's ``fits32``):
+    every path sum is bounded by the sum over vertices of their largest
+    outgoing edge score, held under 2^29, well under the int32 kernels'
+    2^30 sentinel."""
+    if len(pg.eu) == 0:
+        return True
+    seg_max = {}
+    for u, s in zip(pg.eu.tolist(), pg.es.tolist()):
+        if s > seg_max.get(u, -1):
+            seg_max[u] = s
+    return sum(seg_max.values()) < 2**29
 
-    With ``write_prefix`` the three PAF files are written natively and
-    (None, None, None) is returned; without it, the per-contig results.
-    ``dataset`` is accepted for signature parity with solve_dataset_tpu
-    and unused.  Stats land in ``solve_dataset_torch.last_stats``."""
-    del dataset  # the native plane parses src_paths itself
-    _check_supported(cfg, src_paths)
+
+def _n_devices(dev) -> int:
+    """The devices the JAX Python plane would spread over
+    (``jax.device_count()``): every visible card for an unindexed
+    "cuda", else the one device."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.cuda.device_count()
+    return 1
+
+
+def _check_one_device(dataset, cfg: AlignasmConfig, dev) -> None:
+    """The JAX Python plane's multi-device branches are not ported: raise
+    NotImplementedError naming the ROADMAP item where they would run."""
+    if _n_devices(dev) <= 1:
+        return
+    where = (f"{dev} has {_n_devices(dev)} devices; pass one device "
+             "(\"cuda:0\")")
+    if any(len(c) > cfg.max_device_records
+           and len(c) >= cfg.graph_shard_min_records
+           for c in dataset.contigs):
+        raise NotImplementedError(
+            f"the graph-sharded solve of a contig over several devices is "
+            f"not ported (ROADMAP.md: 'Multi-GPU'); {where}")
+    raise NotImplementedError(
+        f"the Python plane's data mesh over several devices is not ported "
+        f"(ROADMAP.md: 'Multi-GPU'); {where}")
+
+
+def pack_dataset(dataset, cfg: AlignasmConfig, stats):
+    """The Python plane's host packing (the JAX plane's first loop):
+    singletons and contigs over ``max_device_records`` records solve with
+    the exact engine right away; every other contig is built and packed.
+
+    Returns ``(results, packed)``: ``results[i]`` the (out, alt, max)
+    triple of contig i or None, ``packed`` a list of (i, PackedGraph)."""
+    from alignasm_tpu_torch.engine.device import pack_graph
+    from alignasm_tpu_torch.engine.exact import solve_contig
+    from alignasm_tpu_torch.engine.graph import build_graph
+
+    results = [None] * len(dataset.contigs)
+    packed = []
+    for i, contig in enumerate(dataset.contigs):
+        if len(contig) == 1 or len(contig) > cfg.max_device_records:
+            results[i] = solve_contig(contig, cfg)
+            stats["singleton" if len(contig) == 1 else "oversize"] += 1
+            continue
+        packed.append((i, pack_graph(build_graph(contig, cfg))))
+    return results, packed
+
+
+def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
+    """Bucket the packed contigs as the JAX plane does: sorted by
+    (vertices, edges), ``batch_size`` per bucket, V and E padded to
+    powers of two (at least 8), ``n_sweeps`` the next power of two above
+    the largest record count + 2.  A bucket is "dense" ((B, V, V)
+    matrices) when every contig fits int32 and V <= ``dense_max_v`` and
+    no cell holds two edges, else "sparse32" or "sparse64" ((B, E) edge
+    lists).  Returns dicts of chunk, B, V, n_sweeps, kind and the numpy
+    ``args`` of the bucket's solve."""
+    from alignasm_tpu_torch.ops.dense import pack_dense_bucket
+
+    packed = sorted(packed, key=lambda t: (t[1].g.n_vertices, len(t[1].eu)))
+    buckets = []
+    for lo in range(0, len(packed), batch_size):
+        chunk = packed[lo:lo + batch_size]
+        B = len(chunk)
+        V = _next_pow2(max(pg.g.n_vertices for _i, pg in chunk))
+        E = _next_pow2(max(max(len(pg.eu), 1) for _i, pg in chunk))
+        n_sweeps = _next_pow2(max(pg.g.n for _i, pg in chunk) + 2)
+        use32 = all(_fits32(pg) for _i, pg in chunk)
+        bucket = dict(chunk=chunk, B=B, V=V, n_sweeps=n_sweeps)
+        if use32 and V <= cfg.dense_max_v:
+            dense = pack_dense_bucket(chunk, V)
+            if dense is not None:
+                buckets.append(dict(bucket, kind="dense", args=dense))
+                continue
+
+        def pad(arrs, dtype, fill=0):
+            out = np.full((B, E), fill, dtype)
+            for b, a in enumerate(arrs):
+                out[b, : len(a)] = a
+            return out
+
+        idt = np.int32 if use32 else np.int64
+        pgs = [pg for _i, pg in chunk]
+        eu = pad([pg.eu for pg in pgs], np.int32)
+        ev = pad([pg.ev for pg in pgs], np.int32)
+        es = pad([pg.es for pg in pgs], idt)
+        ea = pad([pg.ea for pg in pgs], np.int32)
+        evalid = np.zeros((B, E), bool)
+        for b, pg in enumerate(pgs):
+            evalid[b, : len(pg.eu)] = True
+        srcs = np.asarray([pg.g.src for pg in pgs], np.int32)
+        dests = np.asarray([pg.g.dest for pg in pgs], np.int32)
+        if use32:
+            args = (eu, ev, es, ea, evalid, srcs, dests)
+        else:
+            enz = pad([pg.enz for pg in pgs], np.int32)
+            etot = pad([pg.etot for pg in pgs], np.int32)
+            erank = pad([pg.erank for pg in pgs], idt)
+            args = (eu, ev, es, ea, enz, etot, erank, evalid, srcs, dests)
+        buckets.append(dict(bucket, kind="sparse32" if use32 else "sparse64",
+                            args=args))
+    return buckets
+
+
+def launch_python_bucket(bucket, dev):
+    """Move one bucket's arrays to ``dev`` and start its solve
+    (asynchronous on CUDA).  Returns the (B, 5, V) int32 tensor of a
+    dense or sparse32 bucket, or the dict of (B, V) tensors of a sparse64
+    one."""
+    from alignasm_tpu_torch.ops.dense import dense_solve_batch
+    from alignasm_tpu_torch.ops.relax import solve_graph_batch
+    from alignasm_tpu_torch.ops.relax32 import sp_batch32
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in bucket["args"]]
+    if bucket["kind"] == "dense":
+        return dense_solve_batch(*args, n_sweeps=bucket["n_sweeps"])
+    if bucket["kind"] == "sparse32":
+        return sp_batch32(*args, V=bucket["V"], n_sweeps=bucket["n_sweeps"])
+    return solve_graph_batch(*args, V=bucket["V"], n_sweeps=bucket["n_sweeps"])
+
+
+def _solve_torch_python(dataset, cfg: AlignasmConfig, dev, stats,
+                        batch_size: int = 256):
+    """The Python plane (``alignasm_tpu/runtime/scheduler.py:147-362``):
+    pack, bucket, launch every bucket before reading any, then finish
+    each contig on the host."""
+    from alignasm_tpu_torch.engine.device import (
+        Fallback, finish_contig, finish_contig_exact,
+    )
+    from alignasm_tpu_torch.ops.dense import unpack_dense
+
+    _check_one_device(dataset, cfg, dev)
+    t0 = time.perf_counter()
+    results, packed = pack_dataset(dataset, cfg, stats)
+    buckets = python_buckets(packed, cfg, batch_size)
+    stats["pack_s"] = round(time.perf_counter() - t0, 4)
+    t0 = time.perf_counter()
+    counted = {"dense": "dense_buckets", "sparse32": "int32_buckets"}
+    for bucket in buckets:
+        if bucket["kind"] in counted:
+            stats[counted[bucket["kind"]]] += 1
+        bucket["pending"] = launch_python_bucket(bucket, dev)
+    stats["launch_s"] = round(time.perf_counter() - t0, 4)  # H2D + launch
+    t0 = time.perf_counter()
+    for bucket in buckets:
+        pending = bucket.pop("pending")
+        if bucket["kind"] == "sparse64":
+            dev_out = {k: v.cpu().numpy() for k, v in pending.items()}
+            pers = [{k: v[b] for k, v in dev_out.items()}
+                    for b in range(bucket["B"])]
+            inf = 2**62
+        else:  # (B, 5, V) int32 rows, one transfer
+            stacked = pending.cpu().numpy()
+            pers = [unpack_dense(row) for row in stacked]
+            inf = 2**30
+        for (i, pg), per in zip(bucket["chunk"], pers):
+            try:
+                results[i] = finish_contig(pg, per, cfg, inf=inf)
+                stats["device"] += 1
+            except Fallback as fb:
+                results[i] = finish_contig_exact(pg, per, cfg)
+                stats["fallback"] += 1
+                reasons = stats["fallback_reasons"]
+                reasons[str(fb)] = reasons.get(str(fb), 0) + 1
+    stats["finish_s"] = round(time.perf_counter() - t0, 4)  # wait + finish
+    return ([r[0] for r in results], [r[1] for r in results],
+            [r[2] for r in results])
+
+
+def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
+                        write_prefix=None, *, device="cuda",
+                        batch_size: int = 256):
+    """Device engine on PyTorch: solve every contig on ``device`` ("cuda"
+    by default runs the CUDA kernels, "cpu" the plain PyTorch versions;
+    a CUDA device that is not available raises).
+
+    With ``src_paths = (paf, alt_or_None)`` the native plane parses the
+    files itself; with ``write_prefix`` it writes the three PAF files and
+    (None, None, None) is returned, without it the per-contig results.
+    Without ``src_paths`` (or when the native plane raises NativeError
+    and a parsed ``dataset`` was given) the Python plane solves
+    ``dataset`` in buckets of ``batch_size`` contigs and returns the
+    per-contig results; ``write_prefix`` is then not used, as in the JAX
+    package.  Stats land in ``solve_dataset_torch.last_stats``."""
     dev = as_device(device)
+    if src_paths is not None:
+        _check_supported(cfg)
+        stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
+                 "host_plane": "native", "dense_buckets": 0,
+                 "native_direct": 0, "routing": cfg.device_routing,
+                 "torch_device": str(dev)}
+        solve_dataset_torch.last_stats = stats
+        try:
+            return _solve_torch_native(cfg, src_paths, write_prefix, dev,
+                                       stats)
+        except native.NativeError as exc:
+            if dataset is None:
+                raise  # no parsed dataset to degrade to
+            warnings.warn(f"native host plane unavailable: {exc}",
+                          RuntimeWarning, stacklevel=2)
+            native_error = str(exc)
+    elif dataset is None:
+        raise ValueError("solve_dataset_torch needs a dataset or src_paths")
+    else:
+        native_error = None
     stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
-             "host_plane": "native", "dense_buckets": 0, "native_direct": 0,
-             "routing": cfg.device_routing, "torch_device": str(dev)}
+             "host_plane": "python", "fallback_reasons": {},
+             "dense_buckets": 0, "int32_buckets": 0,
+             "torch_device": str(dev)}
+    if native_error is not None:
+        stats["native_error"] = native_error[:500]
     solve_dataset_torch.last_stats = stats
-    return _solve_torch_native(cfg, src_paths, write_prefix, dev, stats)
+    return _solve_torch_python(dataset, cfg, dev, stats, batch_size)
 
 
 solve_dataset_torch.last_stats = None

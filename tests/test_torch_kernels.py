@@ -176,7 +176,7 @@ def test_cuda_slice_matches_goldens(cuda_device, tmp_path, name):
     import dataclasses
     from pathlib import Path
 
-    from alignasm_tpu.config import DEFAULT_CONFIG
+    from alignasm_tpu_torch.config import DEFAULT_CONFIG
     from alignasm_tpu_torch.ops import launch_counts, reset_launch_counts
     from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
@@ -192,3 +192,105 @@ def test_cuda_slice_matches_goldens(cuda_device, tmp_path, name):
     for suf in ("", ".alt", ".all"):
         got = (tmp_path / f"{name}.aln{suf}.paf").read_bytes()
         assert got == (data / f"{name}.aln{suf}.paf").read_bytes(), suf
+
+
+def _rand_dag_mats(B, V, density, seed, nv=None):
+    """Random topo-ordered DAGs as dense (B, V, V) int32 matrices: ws
+    (INF32 = no edge), wa, and the mapq numerator / denominator and a
+    unique arrival rank per edge; dest at nv-1 (a sink), src at 0."""
+    rng = np.random.default_rng(seed)
+    n = nv or V
+    mask = np.triu(rng.random((B, V, V)) < density, k=1)
+    mask[:, n - 1:, :] = False
+    mask[:, :, n:] = False
+    ws = np.where(mask, rng.integers(0, 1000, (B, V, V)), tdense.INF32)
+    wa = np.where(mask, rng.integers(0, 3, (B, V, V)), 0)
+    wnz = np.where(mask, rng.integers(0, 60, (B, V, V)), 0)
+    wtot = np.where(mask, wnz + rng.integers(0, 60, (B, V, V)), 0)
+    wrank = np.full((B, V, V), tdense.INF32)
+    for b in range(B):
+        k = int(mask[b].sum())
+        wrank[b][mask[b]] = rng.permutation(k)
+    dest = np.full(B, n - 1)
+    return [a.astype(np.int32) for a in (ws, wa, wnz, wtot, wrank, dest)]
+
+
+def _to(dev, *arrs):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,density,seed,nv,n_sweeps", [
+    (8, 0.5, 0, None, 16), (64, 0.1, 1, 40, 64), (256, 0.05, 2, None, 256),
+    (256, 0.9, 3, 200, 7), (512, 0.02, 4, None, 1024),
+])
+def test_sweep_kernel_matches_plain_on_the_card(cuda_device, V, density, seed,
+                                                nv, n_sweeps):
+    """The sweep solve kernel bit-equals its plain version through both
+    entries (a few sweeps, too few to converge, included)."""
+    from alignasm_tpu_torch.ops import cuda_sweep
+
+    B = 9
+    ws, wa, _nz, _tot, _rk, dest = _to(
+        cuda_device, *_rand_dag_mats(B, V, density, seed, nv))
+    got = cuda_sweep.sweep_dense_batch(ws, wa, dest, n_sweeps)
+    assert torch.equal(got, tdense.solve_one(ws, wa, ws < tdense.INF32, dest,
+                                             n_sweeps))
+    packed = torch.full((B, V + 1, V), tdense.INF32, dtype=torch.int32,
+                        device=cuda_device)
+    edge = ws < tdense.INF32
+    packed[:, :V] = torch.where(edge, ws | (wa << ANOM_SHIFT), tdense.INF32)
+    packed[:, V, 0] = dest
+    packed[:, V, 1] = torch.arange(B, device=cuda_device) % V  # src
+    rows = cuda_sweep.sweep_dense_slabs(packed, n_sweeps)
+    assert torch.equal(rows, tdense.solve_slabs(packed, n_sweeps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,density,seed,nv,n_sweeps", [
+    (8, 0.5, 0, None, 16), (64, 0.1, 1, 40, 64), (512, 0.02, 2, 300, 512),
+    (1024, 0.01, 3, None, 7),
+])
+def test_relax32_kernel_matches_plain_on_the_card(cuda_device, V, density,
+                                                  seed, nv, n_sweeps):
+    """The int32 sparse relaxation kernel bit-equals its plain version on
+    padded edge lists (padding edges 0 -> 0, invalid; vertices past nv
+    with no out-edge keep segment_min's identity)."""
+    from alignasm_tpu_torch.ops import cuda_relax32, relax32
+
+    B = 7
+    ws, wa, _nz, _tot, _rk, dest = _rand_dag_mats(B, V, density, seed, nv)
+    lists = [np.nonzero(ws[b] < tdense.INF32) for b in range(B)]
+    E = 1 << max(3, (max(len(u) for u, _v in lists) + 5 - 1).bit_length())
+    eu, ev, es, ea = (np.zeros((B, E), np.int32) for _ in range(4))
+    evalid = np.zeros((B, E), bool)
+    for b, (u, v) in enumerate(lists):
+        k = len(u)
+        eu[b, :k], ev[b, :k] = u, v
+        es[b, :k], ea[b, :k] = ws[b][u, v], wa[b][u, v]
+        evalid[b, :k] = True
+    src = np.zeros(B, np.int32)
+    args = _to(cuda_device, eu, ev, es, ea, evalid, src, dest)
+    got = cuda_relax32.relax32(*args, V, n_sweeps)
+    assert torch.equal(got, relax32.sp_batch32_plain(*args, V, n_sweeps))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,density,seed,nv,n_sweeps", [
+    (8, 0.5, 0, None, 16), (64, 0.2, 1, 40, 64), (256, 0.05, 2, None, 256),
+    (512, 0.02, 3, 400, 5),
+])
+def test_dense_sp_kernel_matches_plain_on_the_card(cuda_device, V, density,
+                                                   seed, nv, n_sweeps):
+    """The dense shortest-path kernel bit-equals its plain version, the
+    f32 mapq-fraction key included."""
+    from alignasm_tpu_torch.ops import cuda_dense_sp, dense_sp
+
+    B = 5
+    *mats, dest = _rand_dag_mats(B, V, density, seed, nv)
+    mats = _to(cuda_device, *mats)
+    drow = _to(cuda_device, np.repeat(dest[:, None, None], V, 2))[0]
+    got = cuda_dense_sp.dense_sp(*mats, drow, n_sweeps)
+    want = dense_sp.dense_sp_plain(*mats, drow, n_sweeps)
+    for k in dense_sp.DSP_ROWS:
+        assert torch.equal(got[k], want[k]), k

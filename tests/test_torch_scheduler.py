@@ -1,9 +1,9 @@
 """The port's end-to-end device path (alignasm_tpu_torch.runtime.scheduler)
-on the CPU: output files byte-equal to the committed goldens, to the
-native engine and to the JAX package's device engine, with the scan
-(V <= 256) and the blocked solve (256 < V <= 8192); the
+on the CPU, native plane: output files byte-equal to the committed
+goldens, to the native engine and to the JAX package's device engine,
+with the scan (V <= 256) and the blocked solve (256 < V <= 8192); the
 degrade-to-native contract; the guards of what the slice does not cover;
-and no JAX in the port's import graph.
+and nothing of JAX or the JAX package in the port's import graph.
 """
 
 import dataclasses
@@ -20,6 +20,7 @@ from alignasm_tpu import native
 from alignasm_tpu.config import DEFAULT_CONFIG
 from alignasm_tpu.testing.synth import generate_paf
 from alignasm_tpu_torch import cli
+from alignasm_tpu_torch import native as tnative
 from alignasm_tpu_torch.runtime import scheduler
 from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
@@ -54,15 +55,21 @@ def test_port_matches_goldens(tmp_path, name):
 
 def test_in_memory_results_match_exact_engine():
     """Without write_prefix the per-contig results come back in memory,
-    equal to the Python exact engine's."""
-    from alignasm_tpu.engine.exact import solve_dataset
-    from alignasm_tpu.io.paf import read_paf
+    equal to the Python exact engine's (the port's copy, and field for
+    field the JAX package's)."""
+    from alignasm_tpu.engine.exact import solve_dataset as jax_solve
+    from alignasm_tpu.io.paf import read_paf as jax_read
+    from alignasm_tpu_torch.config import DEFAULT_CONFIG as TCFG
+    from alignasm_tpu_torch.engine.exact import solve_dataset
+    from alignasm_tpu_torch.io.paf import read_paf
 
     paf = DATA / "synth_hard.paf"
     got = solve_dataset_torch(None, CFG, src_paths=(str(paf), None),
                               device="cpu")
     assert solve_dataset_torch.last_stats["device"] > 0
-    assert got == solve_dataset(read_paf(paf), DEFAULT_CONFIG)
+    assert got == solve_dataset(read_paf(paf), TCFG)
+    # a dataclass repr names its fields, not its module
+    assert repr(got) == repr(jax_solve(jax_read(paf), DEFAULT_CONFIG))
 
 
 def test_cli_matches_goldens(tmp_path):
@@ -216,7 +223,7 @@ def test_finish_failure_degrades_to_native_solve(tmp_path, monkeypatch,
     uint8 rows' finish on small contigs, the int16 rows' on a chain
     contig in a V = 1024 blocked bucket."""
     text = _chain_corpus((600, 11)) if finish == "finish_bulk16" else None
-    _degrades(tmp_path, monkeypatch, native.GraphExporter, finish, text)
+    _degrades(tmp_path, monkeypatch, tnative.GraphExporter, finish, text)
 
 
 class _FakeLib:
@@ -256,7 +263,6 @@ def test_kernel_failure_raises(tmp_path, monkeypatch, failure):
     (dict(device_max_v=16384), True, "Buckets above V = 8192"),
     (dict(device_routing="auto"), True, "calibration"),
     (dict(device_routing="never"), True, "native.run"),
-    ({}, False, "Python-plane fallback"),
 ])
 def test_uncovered_configurations_raise(tmp_path, change, src_paths, needle):
     cfg = dataclasses.replace(CFG, **change)
@@ -275,21 +281,29 @@ def test_cuda_request_without_a_card_raises(tmp_path, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port and running its CPU slice loads no JAX module,
-    and not the JAX engine's runtime package either."""
+    """Importing every module of the port and running both its planes on
+    the CPU loads no JAX module and nothing of the JAX package
+    (``alignasm_tpu`` or ``alignasm_tpu.*``)."""
     paf = tmp_path / "s.paf"
-    paf.write_bytes((DATA / "synth_hard.paf").read_bytes())
+    paf.write_bytes((DATA / "synth50.paf").read_bytes())
     code = (
-        "import sys\n"
+        "import importlib, io, pkgutil, sys\n"
+        "import alignasm_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, 'alignasm_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from alignasm_tpu_torch import cli\n"
-        "from alignasm_tpu_torch.ops import (cuda_blocked, cuda_densify,\n"
-        "                                    cuda_topo, dense, wire)\n"
+        "from alignasm_tpu_torch.config import DEFAULT_CONFIG\n"
+        "from alignasm_tpu_torch.io.paf import read_paf\n"
+        "from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch\n"
         f"assert cli.run([{str(paf)!r}], device='cpu') == 0\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(\n"
-        "    ('jax.', 'alignasm_tpu.runtime')))\n"
+        f"solve_dataset_torch(read_paf({str(paf)!r}), DEFAULT_CONFIG,\n"
+        "                    device='cpu')\n"
+        "assert solve_dataset_torch.last_stats['host_plane'] == 'python'\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'alignasm_tpu')\n"
+        "             or m.startswith(('jax.', 'alignasm_tpu.')))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert _outputs(tmp_path / "s") == _outputs(DATA / "synth_hard")
+    assert _outputs(tmp_path / "s") == _outputs(DATA / "synth50")
