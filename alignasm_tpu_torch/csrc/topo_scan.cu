@@ -4,143 +4,131 @@
 // XLA form alignasm_tpu/ops/dense.py:_topo_scan / solve_slab_topo_nxt8, which
 // the main path runs for every bucket with V <= 256.
 //
-// Layout: one thread block per contig, one thread per column v (blockDim =
-// V rounded up to a warp).  Thread v keeps column v's DP state (s, a, fa, ct,
-// cm, nxt) in registers.  Step u = V-1 .. 0 reads slab row u (coalesced; the
-// next row is loaded while the current one reduces) and runs three rounds of
-// block reductions, each a warp-shuffle tree plus one shared-memory pass:
-//   1. m1 = min cs, fa_u = min (wa + fa), ct_u = sum ct      over edges
-//   2. m2 = min (wa + a)                                     over cs == m1
-//   3. cm_u = sum cm, nxt_u = lowest lane                    over achieving edges
-// then thread u stores its new state unless u == dest.  At the end thread
-// src evaluates the order-insensitivity gate
-//   fast = cm == 1 && !(ct >= 2 && a != fa)
-// and every thread writes its dest-encoded nxt byte.
+// What bounds it on the H100: V dependent steps per contig, each a
+// reduction over the row, and the bucket's needed bytes.  A block barrier
+// per step would make it latency-bound.  By the cells it needs the
+// function is bound by bytes: karyotype10k's V = 64 bucket (16,384
+// contigs) takes 0.2191 ms against 0.0403 ms for its bytes and 0.0250 ms
+// for its operations (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py,
+// PERF.md).  With one warp per contig and thousands of contigs in flight,
+// the gap is the steps' instructions: three warp reductions a row after
+// per-lane trees.
 //
-// What bounds it: V dependent steps, each three block barriers and one row
-// load, so latency and not bytes bounds it at V <= 256 (a bucket's slabs are
-// read once).  Thousands of small blocks in flight hide part of that latency.
-// An int32 slab at V = 256 is 263,168 bytes, more than the 227 KB of shared
-// memory a block may use, so rows are read from global memory (L2) one step
-// at a time rather than staged whole.
-//
-// The int32 arithmetic matches the JAX scan literally: ws + s with s = INF32
-// stays below 2^31 (ws < 2^28), fa may exceed INF32 by an unreachable
-// suffix's anomaly sum, and count sums are at most V * COUNT_SAT before
-// saturation.  Every packed cell lies in [0, 2^30], so >> is exact.
+// Design.  One warp per contig, kWarps contigs per CTA, no block barrier
+// anywhere: a warp whose contig lies past B leaves at once.  The lanes hold
+// the columns' DP state in registers (NC = ceil(V/32) columns a lane) and
+// run the shared step of topo_step.cuh for u = V-1 .. 0.  _topo_scan
+// requires u < v for every edge (dense.py:113-115) while dest may sit
+// anywhere, so row u reads only its columns > u and dest's column: about
+// half the slab's sectors.  The next rows' loads stay in flight:
+//   V <= 64   the contig's needed cells go to the warp's slice of shared
+//             memory in one cp.async pass (16 KB at V = 64, every load in
+//             flight at once, INF32 written to the other slots), then the
+//             steps read shared memory;
+//   V > 64    a ring of kRing rows in registers, loaded kRing - 1 steps
+//             ahead from global memory (an int32 slab at V = 256 is
+//             263 KB, more than a CTA's shared memory).
+// At the end every lane writes its columns' dest-encoded nxt bytes and lane
+// 0 the gate (fast = cm == 1 && !(ct >= 2 && a != fa) at src) and src.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topo_step.cuh"
+
 namespace {
 
-constexpr int32_t kInf = 1 << 30;
+using topo::kInf;
+
 constexpr int32_t kCountSat = 10001;
-constexpr int kAnomShift = 28;
-constexpr int32_t kScoreMask = (1 << kAnomShift) - 1;
-constexpr int32_t kIdMin = 0x7fffffff;  // min identity for lanes past V
-constexpr int kMaxWarps = 8;            // V <= 256
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 4;  // contigs per CTA
+constexpr int kRing = 4;   // rows in flight at V > 64
 
-__device__ __forceinline__ int32_t warp_min(int32_t x) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ int32_t warp_sum(int32_t x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-__global__ void __launch_bounds__(256)
-topo_scan_nxt8_kernel(const int32_t* __restrict__ slabs, int32_t V,
+template <int NC>
+__global__ void __launch_bounds__(32 * kWarps)
+topo_scan_nxt8_kernel(const int32_t* __restrict__ slabs, int32_t V, int64_t B,
                       uint8_t* __restrict__ out) {
-  __shared__ int32_t r1[3][kMaxWarps];
-  __shared__ int32_t r2[kMaxWarps];
-  __shared__ int32_t r3[2][kMaxWarps];
-
-  const int32_t v = threadIdx.x;
-  const int lane = v & 31, warp = v >> 5, nw = blockDim.x >> 5;
-  const bool live = v < V;
-  const int32_t* slab = slabs + (int64_t)blockIdx.x * (V + 1) * V;
+  extern __shared__ int32_t staged[];  // V <= 64: kWarps slices of V x 32 NC
+  constexpr int LD = 32 * NC;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t b = (int64_t)blockIdx.x * kWarps + warp;
+  if (b >= B) return;
+  const int32_t* slab = slabs + b * (V + 1) * V;
   const int32_t dest = slab[(int64_t)V * V];
   const int32_t src = slab[(int64_t)V * V + 1];
 
-  int32_t s = v == dest ? 0 : kInf;
-  int32_t a = 0, fa = s;
-  int32_t ct = v == dest ? 1 : 0, cm = ct;
-  int32_t nxt = -1;
+  topo::Cols<NC> c;
+  topo::init_cols(c, 0, dest);
+  auto body = [&](int32_t u, const int32_t (&cell)[NC]) {
+    if (u == dest) return;  // dest's values are the anchors
+    const topo::Row r = topo::topo_step<NC, kCountSat>(cell, c, 0,
+                                                      topo::no_seed());
+    topo::set_col(c, 0, u, r);
+  };
+  auto needed = [&](int32_t u, int32_t col) {
+    return col < V && (col > u || col == dest);
+  };
 
-  int32_t row = live ? slab[(int64_t)(V - 1) * V + v] : kInf;
-  for (int32_t u = V - 1; u >= 0; --u) {
-    const int32_t next = (live && u > 0) ? slab[(int64_t)(u - 1) * V + v] : kInf;
-    const bool edge = row != kInf;
-    const int32_t ws = row & kScoreMask;
-    const int32_t wa = row >> kAnomShift;
-
-    // round 1: m1, fa_u, ct_u
-    const int32_t cs = edge ? ws + s : kInf;
-    int32_t x0 = warp_min(live ? cs : kIdMin);
-    int32_t x1 = warp_min(live ? (edge ? wa + fa : kInf) : kIdMin);
-    int32_t x2 = warp_sum(edge ? ct : 0);
-    if (lane == 0) {
-      r1[0][warp] = x0;
-      r1[1][warp] = x1;
-      r1[2][warp] = x2;
+  if constexpr (NC <= 2) {
+    // the needed cells by cp.async, INF32 in every other slot
+    int32_t* sm = staged + warp * V * LD;
+    for (int32_t u = 0; u < V; ++u) {
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int32_t col = lane + 32 * k;
+        if (needed(u, col))
+          __pipeline_memcpy_async(sm + u * LD + col,
+                                  slab + (int64_t)u * V + col, 4);
+        else
+          sm[u * LD + col] = kInf;
+      }
     }
-    __syncthreads();
-    int32_t m1 = r1[0][0], fa_u = r1[1][0], ct_u = r1[2][0];
-    for (int w = 1; w < nw; ++w) {
-      m1 = min(m1, r1[0][w]);
-      fa_u = min(fa_u, r1[1][w]);
-      ct_u += r1[2][w];
-    }
-    ct_u = min(ct_u, kCountSat);
-
-    // round 2: m2 over the score-achieving edges
-    const bool on = edge && cs == m1;
-    x0 = warp_min(live ? (on ? wa + a : kInf) : kIdMin);
-    if (lane == 0) r2[warp] = x0;
-    __syncthreads();
-    int32_t m2 = r2[0];
-    for (int w = 1; w < nw; ++w) m2 = min(m2, r2[w]);
-    const bool reach = m1 < kInf;
-    const int32_t s_u = reach ? m1 : kInf;
-    const int32_t a_u = reach ? m2 : 0;
-
-    // round 3: cm_u and the lowest achieving successor
-    const bool ach = edge && s < kInf && ws + s == s_u && wa + a == a_u;
-    x0 = warp_sum(ach ? cm : 0);
-    x1 = warp_min(ach ? v : V);
-    if (lane == 0) {
-      r3[0][warp] = x0;
-      r3[1][warp] = x1;
-    }
-    __syncthreads();
-    int32_t cm_u = r3[0][0], low = r3[1][0];
-    for (int w = 1; w < nw; ++w) {
-      cm_u += r3[0][w];
-      low = min(low, r3[1][w]);
-    }
-    cm_u = min(cm_u, kCountSat);
-
-    if (v == u && u != dest) {
-      s = s_u;
-      a = a_u;
-      fa = fa_u;
-      ct = ct_u;
-      cm = cm_u;
-      nxt = low < V ? low : -1;
-    }
-    row = next;
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    topo::reverse_rows<NC, 2>(V, [&](int32_t u, int32_t (&cell)[NC]) {
+#pragma unroll
+      for (int k = 0; k < NC; ++k) cell[k] = sm[u * LD + lane + 32 * k];
+    }, body);
+  } else {
+    topo::reverse_rows<NC, kRing>(V, [&](int32_t u, int32_t (&cell)[NC]) {
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int32_t col = lane + 32 * k;
+        cell[k] = needed(u, col) ? __ldg(slab + (int64_t)u * V + col) : kInf;
+      }
+    }, body);
   }
 
-  uint8_t* o = out + (int64_t)blockIdx.x * (V + 2);
-  if (live) o[v] = (uint8_t)(nxt < 0 ? dest : nxt);
-  if (v == src) {
-    o[V] = (cm == 1 && !(ct >= 2 && a != fa)) ? 1 : 0;
+  uint8_t* o = out + b * (V + 2);
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int32_t col = lane + 32 * k;
+    if (col < V) o[col] = (uint8_t)(c.nxt[k] < 0 ? dest : c.nxt[k]);
+  }
+  const bool fast = topo::gate_at(c, 0, src);
+  if (lane == 0) {
+    o[V] = fast ? 1 : 0;
     o[V + 1] = (uint8_t)src;
   }
+}
+
+template <int NC>
+int launch(const int32_t* slabs, int64_t B, int32_t V, uint8_t* out,
+           cudaStream_t st) {
+  const size_t smem = NC <= 2 ? (size_t)kWarps * V * 32 * NC * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        topo_scan_nxt8_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const int64_t ctas = (B + kWarps - 1) / kWarps;
+  topo_scan_nxt8_kernel<NC><<<(unsigned)ctas, 32 * kWarps, smem, st>>>(
+      slabs, V, B, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -149,13 +137,19 @@ topo_scan_nxt8_kernel(const int32_t* __restrict__ slabs, int32_t V,
 // returns cudaGetLastError() after the launch.
 extern "C" int aln_topo_scan_nxt8(int device, const int32_t* slabs, int64_t B,
                                   int32_t V, uint8_t* out, void* stream) {
-  if (V < 1 || V > 32 * kMaxWarps) return (int)cudaErrorInvalidValue;
+  if (V < 2 || V > 256 || B < 0) return (int)cudaErrorInvalidValue;
   cudaError_t rc = cudaSetDevice(device);
   if (rc != cudaSuccess) return (int)rc;
-  if (B > 0) {
-    const int threads = (V + 31) / 32 * 32;
-    topo_scan_nxt8_kernel<<<(unsigned)B, threads, 0, (cudaStream_t)stream>>>(
-        slabs, V, out);
+  if (B == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch ((V + 31) / 32) {
+    case 1: return launch<1>(slabs, B, V, out, st);
+    case 2: return launch<2>(slabs, B, V, out, st);
+    case 3: return launch<3>(slabs, B, V, out, st);
+    case 4: return launch<4>(slabs, B, V, out, st);
+    case 5: return launch<5>(slabs, B, V, out, st);
+    case 6: return launch<6>(slabs, B, V, out, st);
+    case 7: return launch<7>(slabs, B, V, out, st);
+    default: return launch<8>(slabs, B, V, out, st);
   }
-  return (int)cudaGetLastError();
 }

@@ -14,17 +14,24 @@ import torch
 
 from alignasm_tpu_torch.ops import _build
 
+# The block sizes the kernel takes.  The rows do not depend on the choice
+# when no edge (r, dest) comes from a row r past dest, as on exporter wires
+# (csrc/blocked_dp.cu says why).
+BLOCK_SIZES = (32, 64, 128)
+
 
 def blocked_dp_nxt16(slabs, Bk: int):
-    """(B, V+1, V) int32 slabs, Bk in {32, 64}, V a multiple of Bk up to
-    32767 -> (B, V+2) int16 gate rows ``[nxt (-1 encoded as dest), fast,
-    src]``."""
+    """(B, V+1, V) int32 slabs, Bk in BLOCK_SIZES, V a multiple of Bk up
+    to 32767 -> (B, V+2) int16 gate rows ``[nxt (-1 encoded as dest),
+    fast, src]``."""
+    if Bk not in BLOCK_SIZES:
+        raise ValueError(f"Bk must be one of {BLOCK_SIZES}, got {Bk}")
     _build.require(slabs, "slabs", torch.int32, 3)
     B, V1, V = slabs.shape
-    if V1 != V + 1 or Bk not in (32, 64) or V % Bk or not Bk <= V <= 32767:
+    if V1 != V + 1 or V % Bk or not Bk <= V <= 32767:
         raise ValueError(f"slabs must be (B, V+1, V) with V a multiple of "
-                         f"Bk in (32, 64), V <= 32767; got "
-                         f"{tuple(slabs.shape)}, Bk={Bk}")
+                         f"Bk, V <= 32767; got {tuple(slabs.shape)}, "
+                         f"Bk={Bk}")
     if B > 65535:
         raise ValueError(f"at most 65535 contigs per launch, got {B}")
     if slabs.data_ptr() % 16:

@@ -14,12 +14,13 @@ from alignasm_tpu_torch.ops import _build
 
 
 def topo_scan_nxt8(slabs):
-    """(B, V+1, V) int32 slabs, V <= 256 -> (B, V+2) uint8 gate rows
-    ``[nxt (-1 encoded as dest), fast, src]``."""
+    """(B, V+1, V) int32 slabs, 2 <= V <= 256 (row V holds [dest, src])
+    -> (B, V+2) uint8 gate rows ``[nxt (-1 encoded as dest), fast,
+    src]``."""
     _build.require(slabs, "slabs", torch.int32, 3)
     B, V1, V = slabs.shape
-    if V1 != V + 1 or not 1 <= V <= 256:
-        raise ValueError(f"slabs must be (B, V+1, V) with V <= 256, "
+    if V1 != V + 1 or not 2 <= V <= 256:
+        raise ValueError(f"slabs must be (B, V+1, V) with 2 <= V <= 256, "
                          f"got {tuple(slabs.shape)}")
     lib = _build.load_library()
     out = torch.empty((B, V + 2), dtype=torch.uint8, device=slabs.device)

@@ -136,11 +136,10 @@ def topo_scan(slabs):
     return (s, a, fa, ct, cm, nxt), dest, src
 
 
-def solve_slab_topo_nxt8(slabs):
-    """Plain form of ``solve_slab_topo_nxt8`` (alignasm_tpu/ops/dense.py:217),
-    batched: (B, V+1, V) slabs -> (B, V+2) uint8 rows
-    ``[nxt (-1 encoded as dest), fast, src]`` with the on-device gate
-    ``fast = cm[src] == 1 and not (ct[src] >= 2 and a[src] != fa[src])``."""
+def _scan_rows(slabs, dtype):
+    """``[nxt (-1 encoded as dest), fast, src]`` rows of the plain scan,
+    the gate ``fast = cm[src] == 1 and not (ct[src] >= 2 and a[src] !=
+    fa[src])`` in exact int32."""
     (s, a, fa, ct, cm, nxt), dest, src = topo_scan(slabs)
     at = src[:, None]
 
@@ -150,7 +149,25 @@ def solve_slab_topo_nxt8(slabs):
     fast = (pick(cm) == 1) & ~((pick(ct) >= 2) & (pick(a) != pick(fa)))
     nxt_enc = torch.where(nxt < 0, dest[:, None].to(torch.int32), nxt)
     tail = torch.stack([fast.to(torch.int32), src.to(torch.int32)], 1)
-    return torch.cat([nxt_enc, tail], 1).to(torch.uint8)
+    return torch.cat([nxt_enc, tail], 1).to(dtype)
+
+
+def solve_slab_topo_nxt8(slabs):
+    """Plain form of ``solve_slab_topo_nxt8`` (alignasm_tpu/ops/dense.py:217),
+    batched: (B, V+1, V) slabs, V <= 256 -> (B, V+2) uint8 rows
+    ``[nxt (-1 encoded as dest), fast, src]`` with the on-device gate."""
+    return _scan_rows(slabs, torch.uint8)
+
+
+def solve_slab_topo_nxt16(slabs):
+    """Plain form of ``solve_slab_topo_nxt16`` (alignasm_tpu/ops/dense.py:
+    249), batched: (B, V+1, V) slabs, V <= 32767 -> (B, V+2) int16 rows
+    ``[nxt (-1 encoded as dest), fast, src]`` from one reverse-topological
+    scan.  The function the blocked kernel (csrc/blocked_dp.cu) computes;
+    ``solve_slab_topo_nxt16_blocked`` gives the same rows at every Bk when
+    path sums stay below INFH and no edge (r, dest) comes from a row r
+    past dest, as on exporter wires of the device's buckets."""
+    return _scan_rows(slabs, torch.int16)
 
 
 def _mp_closure(A, inf_h: int, nlev: int):
@@ -168,8 +185,9 @@ def _cnt_closure(adj, nlev: int):
     included), saturated at 2, by path doubling: P' = min(P + Q P, 2),
     Q' = min(Q Q, 2) from P = I, Q = adj.  Float32 matrix products as in
     the JAX package: inputs lie in {0, 1, 2}, products are <= 4 and sums
-    <= 4 * Bk <= 256, all exact in float32 (and in TF32 with float32
-    accumulation, whose 10-bit mantissa holds them too)."""
+    <= 4 * Bk, at most 1,024 at Bk = 256: exact in float32, and in TF32
+    with float32 accumulation (the products of values in {0, 1, 2} are
+    exact, and the float32 sums hold every integer below 2^24)."""
     Q = adj.to(torch.float32)
     P = torch.eye(adj.shape[-1], device=adj.device).expand_as(Q)
     for _ in range(nlev):

@@ -105,12 +105,16 @@ def _pad_batch(realB: int, V: int) -> int:
     return _next_pow2(realB)
 
 
-def _blocked_bk(padB: int) -> int:
-    """Block size of the blocked solve: the JAX scheduler's rule, tuned on
-    a TPU and a placeholder here until the port's calibration sets it
-    (rows do not depend on it; PERF.md has both sizes' times on the
-    H100)."""
-    return 64 if padB == 1 else 32
+# Block size of the blocked solve, the same at every batch size: an A/B of
+# Bk = 32, 64, 128 and 256 on every bigv and long2000 bucket in one
+# ``chip_smoke.py`` run (NVIDIA H100 80GB HBM3, 700.00 W power limit;
+# PERF.md) put 64 first over the four buckets, 4.6853 ms against 4.8600 at
+# 128, 5.5031 at 32 and 9.4255 at 256, and first on three of them (128 was
+# 2.4 % faster on long2000's V = 512, padB 256 bucket).  A block step's
+# cost grows with Bk / 32, the columns a lane holds, while the launches
+# fall with V / Bk.  The rows do not depend on Bk when no edge (r, dest)
+# comes from a row r past dest, as on exporter wires.
+BLOCKED_BK = 64
 
 
 def _dense_buckets(order, n_v, dense_cells: int = 2**26,
@@ -181,7 +185,7 @@ def solve_bucket(kind: str, args, padB: int, V: int):
         return dense_solve_wire16_topo_nxt8(*args, B=padB, V=V)
     if V > MAX_V:
         return dense_solve_wire_topo_nxt16_blocked_ragged(
-            *args, B=padB, V=V, Bk=_blocked_bk(padB))
+            *args, B=padB, V=V, Bk=BLOCKED_BK)
     return dense_solve_wire_topo_nxt8_ragged(*args, B=padB, V=V)
 
 

@@ -12,8 +12,10 @@ Run from the root of a checkout, on a machine with a CUDA device:
    the same CUDA tensors and requires bit-equal results (every value is
    an integer or an exactly rounded f32 key).  Native plane: exports
    every device bucket of the three corpora; the densify kernels on
-   every bucket, the scan on V <= 256, the blocked solve on V > 256 with
-   both block sizes (Bk = 32 and 64), and the sweep solve's slab entry
+   every bucket, the scan on V <= 256, the blocked solve on V > 256 at
+   every block size it takes (Bk = 32, 64, 128: the A/B behind the
+   scheduler's Bk, printed as a per-Bk line), its rows also held to the
+   plain scan's int16 rows, and the sweep solve's slab entry
    (``n_sweeps = V``) on long2000's widest V <= 256 slab bucket.  Python
    plane: packs long2000 as ``solve_dataset_torch(dataset, ...)`` does;
    the sweep solve on every dense bucket, the int32 sparse relaxation on
@@ -30,6 +32,9 @@ Run from the root of a checkout, on a machine with a CUDA device:
    read_paf(long2000), cfg)`` on the card, its files byte-compared with
    ``native.run``'s and its counts held to the JAX Python plane's.  Every
    kernel of a path must have launched in its run.
+4. Profile: the native plane once more on each corpus under
+   torch.profiler: the device's busy time and share, and the scan's and
+   the blocked solve's kernel time.
 
 Then one JSON line of per-kernel results (``launches`` counted in phase
 3, null for the library entries: ``dense_sp`` and the sweep solve's slab
@@ -37,8 +42,12 @@ entry, ``sweep_dense_slabs``; ``ms``/``plain_ms`` the kernel's and its
 plain version's times summed over every bucket it ran on in phase 2, for
 the blocked solve at the block size the scheduler picks; ``bound_ms``
 the least time the card could take for the same work, from the bytes
-each input and output moves once and the operations of one pass over
-this run's edges or cells; ``library_ms`` null: no single PyTorch call
+each input the function needs and each output moves once (for the scan
+and the blocked solve: the strict upper triangle, dest's column below
+the diagonal, the trailer row's dest and src, and the rows) and the
+operations of one pass over this run's edges, or over the cells the scan
+and the blocked solve need (the same cells); ``library_ms``
+null: no single PyTorch call
 computes any of these functions), the card line again and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without that line.  Imports no JAX and nothing of the JAX package.
@@ -115,8 +124,8 @@ PATH_OPS = 15
 # conversions, clamp, division and negation, the four-key lexicographic
 # compare (10), six selects.
 DENSE_SP_OPS = 25
-SCAN_OPS = 25        # per cell: three reduction rounds a row
-FOLD_OPS = 15        # blocked solve: per upper-triangle cell, folded once
+SCAN_OPS = 25        # per needed cell: three reduction rounds a row
+FOLD_OPS = 15        # blocked solve: per needed cell, folded once
 
 
 def fail(msg: str):
@@ -192,7 +201,7 @@ def buckets_of(paf, cfg, device):
 def record(results, name, err, ms, plain, nbytes, nops):
     """Add one call's readings to ``name``'s line: its error, kernel and
     plain times, and its bound from the bytes it moves once and the
-    operations its inputs need."""
+    operations its inputs need.  Returns the call's bound as text."""
     r = results[name]
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["ms"] += ms
@@ -201,10 +210,28 @@ def record(results, name, err, ms, plain, nbytes, nops):
     r["bound_ms"] += max(by_bytes, by_ops)
     r["bytes_ms"] += by_bytes
     r["ops_ms"] += by_ops
+    return f"bound {by_bytes:.4f} ms by bytes, {by_ops:.4f} by operations"
 
 
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dp_cells(slabs) -> int:
+    """Cells the scan and the blocked solve need: every edge lies in a
+    slab's strict upper triangle (u < v) except those into dest, which may
+    sit anywhere, so the strict upper triangle and dest's column below the
+    diagonal."""
+    B, _, V = slabs.shape
+    dest = slabs[:, V, 0].long().clamp(0, V - 1)
+    return B * V * (V - 1) // 2 + int((V - 1 - dest).sum())
+
+
+def dp_bytes(slabs, rows) -> int:
+    """Bytes the scan and the blocked solve need, each read or written
+    once: the needed cells, the trailer row's dest and src, and the output
+    rows."""
+    return 4 * (dp_cells(slabs) + 2 * slabs.shape[0]) + nbytes_of(rows)
 
 
 def check_scan(name, V, padB, slabs, results):
@@ -219,37 +246,50 @@ def check_scan(name, V, padB, slabs, results):
              f"(max_abs_err {err})")
     ms = cuda_ms(lambda: cuda_topo.topo_scan_nxt8(slabs), 20)
     plain = cuda_ms(lambda: dense.solve_slab_topo_nxt8(slabs), 3)
-    record(results, "topo_scan", err, ms, plain, nbytes_of(slabs, rows),
-           padB * V * V * SCAN_OPS)
+    bound = record(results, "topo_scan", err, ms, plain,
+                   dp_bytes(slabs, rows), dp_cells(slabs) * SCAN_OPS)
     return (f"topo_scan {1000 * ms / padB:.4f} us/contig (plain "
-            f"{1000 * plain / padB:.4f}; {ms:.4f} vs {plain:.4f} ms/bucket)")
+            f"{1000 * plain / padB:.4f}; {ms:.4f} vs {plain:.4f} ms/bucket; "
+            f"{bound})")
 
 
-def check_blocked(name, V, padB, slabs, results):
+def check_blocked(name, V, padB, slabs, results, by_bk):
     """The blocked kernel against its plain version on one V > 256
-    bucket, at both block sizes; the scheduler's size is recorded."""
+    bucket, at every block size it takes, and its rows against the plain
+    scan's; the scheduler's size is recorded, every size's time goes to
+    ``by_bk``."""
+    import torch
+
     from alignasm_tpu_torch.ops import cuda_blocked, dense
     from alignasm_tpu_torch.runtime import scheduler as tsched
 
+    scan_rows = dense.solve_slab_topo_nxt16(slabs)
     parts = []
-    for Bk in (32, 64):
+    for Bk in cuda_blocked.BLOCK_SIZES:
         rows = cuda_blocked.blocked_dp_nxt16(slabs, Bk)
         rows_p = dense.solve_slab_topo_nxt16_blocked(slabs, Bk)
         err = int((rows.int() - rows_p.int()).abs().max())
         if err:
             fail(f"{name} V={V} B={padB} Bk={Bk}: blocked kernel disagrees "
                  f"with plain (max_abs_err {err})")
+        if not torch.equal(rows, scan_rows):
+            fail(f"{name} V={V} B={padB} Bk={Bk}: blocked kernel disagrees "
+                 f"with the plain scan's rows")
         ms = cuda_ms(lambda: cuda_blocked.blocked_dp_nxt16(slabs, Bk), 10)
         plain = cuda_ms(
             lambda: dense.solve_slab_topo_nxt16_blocked(slabs, Bk), 1)
-        picked = Bk == tsched._blocked_bk(padB)
+        by_bk.setdefault(Bk, []).append((name, V, padB, ms))
+        picked = Bk == tsched.BLOCKED_BK
+        bound = ""
         if picked:
-            record(results, "blocked_dp", err, ms, plain,
-                   nbytes_of(slabs, rows), padB * V * V // 2 * FOLD_OPS)
+            bound = "; " + record(results, "blocked_dp", err, ms, plain,
+                                  dp_bytes(slabs, rows),
+                                  dp_cells(slabs) * FOLD_OPS)
         parts.append(
             f"blocked_dp Bk={Bk}{' (scheduler)' if picked else ''} "
             f"{1000 * ms / padB:.1f} us/contig (plain "
-            f"{1000 * plain / padB:.1f}; {ms:.4f} vs {plain:.4f} ms/bucket)")
+            f"{1000 * plain / padB:.1f}; {ms:.4f} vs {plain:.4f} ms/bucket"
+            f"{bound})")
     return "; ".join(parts)
 
 
@@ -280,6 +320,7 @@ def phase_kernels(paths, cfg, device, results):
     from alignasm_tpu_torch.ops import cuda_densify, dense
     from alignasm_tpu_torch.runtime import scheduler as tsched
 
+    by_bk = {}
     for name, paf in paths.items():
         for V, realB, padB, kind, args in buckets_of(paf, cfg, device):
             if kind == "wire16":
@@ -301,14 +342,21 @@ def phase_kernels(paths, cfg, device, results):
             wire_in = [a for a in args if isinstance(a, torch.Tensor)]
             record(results, kname, err_d, d_ms, d_plain,
                    nbytes_of(*wire_in, slabs), 0)
-            check = check_scan if V <= tsched.MAX_V else check_blocked
-            solve = check(name, V, padB, slabs, results)
+            if V <= tsched.MAX_V:
+                solve = check_scan(name, V, padB, slabs, results)
+            else:
+                solve = check_blocked(name, V, padB, slabs, results, by_bk)
             if name == "long2000" and kind == "ragged" and V <= tsched.MAX_V:
                 solve += "; " + check_slab_sweep(name, V, padB, slabs,
                                                  results)
             print(f"kernels {name} V={V} B={realB} padB={padB} wire={kind}: "
                   f"bit-equal; {kname} {d_ms:.4f} ms/bucket "
                   f"(plain {d_plain:.4f}); {solve}", flush=True)
+    for Bk, runs in by_bk.items():
+        print(f"blocked_dp A/B Bk={Bk}: {sum(r[3] for r in runs):.4f} ms "
+              f"over {len(runs)} buckets (" + ", ".join(
+                  f"{n} V={V} padB={B} {ms:.4f}" for n, V, B, ms in runs)
+              + ")", flush=True)
 
 
 def check_dense_sp(bucket, sweep_rows, device, results):
@@ -487,6 +535,54 @@ def phase_python_plane(paf, cfg, device, tmp):
           f"finish_s {stats['finish_s']})", flush=True)
 
 
+def phase_profile(paths, cfg, device, tmp):
+    """One more native-plane run per corpus under torch.profiler (after
+    phase 3, so nothing builds): the wall time, the device's busy time
+    (the union of its kernel and copy intervals) and share, and the time
+    of the scan's and the blocked solve's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alignasm_tpu_torch import native
+    from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
+
+    for name, paf in paths.items():
+        native.drain_teardowns()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve_dataset_torch(None, cfg, src_paths=(str(paf), None),
+                                write_prefix=str(tmp / f"prof_{name}"),
+                                device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans, kern = [], {"topo_scan": 0.0, "blocked": 0.0}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+            for key in kern:
+                if key in e.name:
+                    kern[key] += (e.time_range.end - e.time_range.start) / 1e3
+        if not spans:
+            print(f"profile {name}: wall {wall:.4f} s; device busy not "
+                  f"measured (the profiler saw no device events)", flush=True)
+            continue
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        busy /= 1e3
+        st = solve_dataset_torch.last_stats
+        print(f"profile {name}: wall {wall:.4f} s; device busy {busy:.4f} ms "
+              f"({100 * busy / (1e3 * wall):.2f} %); kernels topo_scan "
+              f"{kern['topo_scan']:.4f} ms, blocked_dp {kern['blocked']:.4f} "
+              f"ms; pack_s {st.get('pack_s')} cfinish_s {st.get('cfinish_s')} "
+              f"write_s {st.get('write_s')} launch_s {st.get('launch_s')}",
+              flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -536,6 +632,7 @@ def main() -> int:
         reset_launch_counts()
         phase_python_plane(paths["long2000"], cfg, device, tmp)
         counts["python"] = launch_counts()
+        phase_profile(paths, cfg, device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lines = []

@@ -21,7 +21,9 @@ from alignasm_tpu.ops import dense as jdense
 from alignasm_tpu.testing.synth import generate_hard_paf, generate_paf
 from alignasm_tpu_torch.ops import dense as tdense
 from alignasm_tpu_torch.ops.wire import ragged_to_device, wire16_to_device
-from tests.test_torch_kernels import _ragged_to_wire16, _rand_wire
+from tests.test_torch_kernels import (
+    _inf_sum_slabs, _ragged_to_wire16, _rand_wire,
+)
 
 
 def _np(t):
@@ -109,11 +111,7 @@ def test_densify_and_rows_match_jax_on_exporter_wires(tmp_path, corpus, lo, hi):
         exp.close()
 
 
-def test_topo_scan_vectors_match_jax():
-    """All six DP vectors of the plain scan, not just the shipped row."""
-    V, B = 64, 4
-    w = _rand_wire(B, V, 0.1, 5, nv=50)
-    slabs = np.array(jdense._densify_wire_ragged(w, B, V))
+def _scan_vectors_match_jax(slabs, V):
     (s, a, fa, ct, cm, nxt), dest, src = jax.jit(jax.vmap(
         lambda x: jdense._topo_scan(x, V)))(slabs)
     got, gdest, gsrc = tdense.topo_scan(torch.from_numpy(slabs))
@@ -121,6 +119,20 @@ def test_topo_scan_vectors_match_jax():
         np.testing.assert_array_equal(_np(g), np.asarray(want))
     np.testing.assert_array_equal(_np(gdest), np.asarray(dest))
     np.testing.assert_array_equal(_np(gsrc), np.asarray(src))
+
+
+def test_topo_scan_vectors_match_jax():
+    """All six DP vectors of the plain scan, not just the shipped row."""
+    V, B = 64, 4
+    w = _rand_wire(B, V, 0.1, 5, nv=50)
+    _scan_vectors_match_jax(
+        np.array(jdense._densify_wire_ragged(w, B, V)), V)
+
+
+def test_topo_scan_vectors_match_jax_where_a_sum_is_exactly_inf32():
+    """The six vectors where an edge into a reachable column sums to INF32
+    exactly: the int32 literalness of ``_topo_scan``'s ``ach``."""
+    _scan_vectors_match_jax(_inf_sum_slabs(5, 16), 16)
 
 
 @pytest.mark.parametrize("V,density,seed,nv", [

@@ -73,6 +73,40 @@ def _ragged_to_wire16(wire, B, V):
     return d16, v16, tab, np.int32(n_real), seeds, np.ones(B, bool)
 
 
+def _inf_sum_slabs(B, V):
+    """Slabs whose contig b holds, at base = 3b mod (V - 7), a chain
+    base+2 -> base+3 -> ... -> base+7 = dest whose score sum from base+2
+    is INF32 exactly (four edges of 2^28 - 1, then 4), so row base+2 is
+    unreachable and its one edge still achieves (INF32, 0), as
+    ``_topo_scan``'s ``ach`` has it; src = base+2, and row base+1 reaches
+    dest directly."""
+    top = (1 << ANOM_SHIFT) - 1
+    slabs = np.full((B, V + 1, V), tdense.INF32, np.int32)
+    for b in range(B):
+        o = 3 * b % (V - 7)
+        for u, v, ws, wa in ((6, 7, top, 0), (5, 6, top, 0), (4, 5, top, 0),
+                             (3, 4, top, 0), (2, 3, 4, 0), (1, 2, 5, 1),
+                             (1, 7, 3, 0)):
+            slabs[b, o + u, o + v] = ws | (wa << ANOM_SHIFT)
+        slabs[b, V, :2] = (o + 7, o + 2)
+    return slabs
+
+
+def test_scan_counts_an_edge_whose_sum_is_exactly_inf32():
+    """The plain scan keeps _topo_scan's int32 literalness: the unreachable
+    row base+2 has cm = 1 and nxt = base+3 (its edge into the reachable
+    base+3 sums to INF32 exactly), so the gate at src = base+2 is fast."""
+    B, V = 5, 16
+    (s, _a, _fa, _ct, cm, nxt), _dest, _src = tdense.topo_scan(
+        torch.from_numpy(_inf_sum_slabs(B, V)))
+    for b in range(B):
+        o = 3 * b % (V - 7)
+        assert s[b, o + 3] == tdense.INF32 - 4 and s[b, o + 2] == tdense.INF32
+        assert cm[b, o + 2] == 1 and nxt[b, o + 2] == o + 3
+    rows = tdense.solve_slab_topo_nxt8(torch.from_numpy(_inf_sum_slabs(B, V)))
+    assert rows[:, V].tolist() == [1] * B
+
+
 def test_wire16_transport_keeps_u16_bytes():
     """The u16 streams travel as their 2 raw bytes and widen exactly,
     values of 2^15 and above included."""
@@ -107,8 +141,13 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_densify.densify_ragged(torch.zeros((2, 8), dtype=torch.int32), 1, 8)
     big = torch.full((1, 513, 512), tdense.INF32, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        cuda_blocked.blocked_dp_nxt16(big, 32)
+    assert cuda_blocked.BLOCK_SIZES == (32, 64, 128)
+    for Bk in cuda_blocked.BLOCK_SIZES:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            cuda_blocked.blocked_dp_nxt16(big, Bk)
+    for Bk in (0, 16, 48, 96, 256, 512):
+        with pytest.raises(ValueError, match="Bk must be one of"):
+            cuda_blocked.blocked_dp_nxt16(big, Bk)
     assert cuda_topo.topo_scan_nxt8.launches == 0
     assert cuda_blocked.blocked_dp_nxt16.launches == 0
 
@@ -120,12 +159,37 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _add_edges_into_dest(slabs, seed):
+    """Edges (r, dest) from rows r past dest, which the scan and the
+    blocked solve read as dest's column below the diagonal (dest may sit
+    anywhere in a slab); returns the contigs' dests."""
+    rng = np.random.default_rng(seed)
+    B, _, V = slabs.shape
+    dests = slabs[:, V, 0].tolist()
+    for b, d in enumerate(dests):
+        rows = [r for r in range(d + 1, V) if rng.random() < 0.3]
+        for r in rows:
+            slabs[b, r, d] = int(rng.integers(0, 1000)) | \
+                (int(rng.integers(0, 4)) << ANOM_SHIFT)
+    return dests
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("V,density,seed,nv", [
-    (8, 0.5, 0, None), (64, 0.05, 1, 40), (128, 0.9, 2, None),
-    (256, 0.05, 3, 150), (256, 0.9, 4, None),
+@pytest.mark.parametrize("V,density,seed,nv,into_dest", [
+    (8, 0.5, 0, None, False), (64, 0.05, 1, 40, False),
+    (128, 0.9, 2, None, False), (256, 0.05, 3, 150, False),
+    (256, 0.9, 4, None, False),
+    # one warp per contig, four contigs per CTA: B = 37 leaves the last
+    # CTA partly empty; V around the 32-column lane strides and the
+    # staged (V <= 64) / streamed split; V = 2 is the least V whose row V
+    # holds [dest, src]
+    (2, 0.5, 5, None, False), (31, 0.3, 6, 20, False),
+    (33, 0.3, 7, None, False), (64, 0.9, 8, None, False),
+    (65, 0.1, 9, 50, False), (200, 0.05, 10, 150, False),
+    (64, 0.1, 11, 40, True), (200, 0.05, 12, 150, True),
 ])
-def test_kernels_match_plain_on_the_card(cuda_device, V, density, seed, nv):
+def test_kernels_match_plain_on_the_card(cuda_device, V, density, seed, nv,
+                                         into_dest):
     """Both densify kernels and the scan kernel bit-equal their plain
     versions on the same CUDA tensors."""
     from alignasm_tpu_torch.ops import cuda_densify, cuda_topo
@@ -135,37 +199,64 @@ def test_kernels_match_plain_on_the_card(cuda_device, V, density, seed, nv):
     rag = ragged_to_device(w, cuda_device)
     slabs = cuda_densify.densify_ragged(rag, B, V)
     assert torch.equal(slabs, tdense.densify_wire_ragged(rag, B, V))
+    if into_dest:
+        slabs = slabs.clone()
+        _add_edges_into_dest(slabs, seed)
     rows = cuda_topo.topo_scan_nxt8(slabs)
     assert torch.equal(rows, tdense.solve_slab_topo_nxt8(slabs))
-    if V <= 128:
+    if V <= 128 and not into_dest:
         args = wire16_to_device(_ragged_to_wire16(w, B, V), cuda_device)
         assert torch.equal(cuda_densify.densify_wire16(*args, B, V), slabs)
         assert torch.equal(tdense.densify_wire16(*args, B, V), slabs)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("Bk", [32, 64])
-@pytest.mark.parametrize("V,density,seed,nv", [
-    (512, 0.08, 9, None),     # random DAG
-    (512, 0.0005, 4, None),   # mostly unreachable
-    (512, 0.05, 3, 300),      # padding past nv (dest mid-slab)
-    (1024, 0.02, 1, None),
-    (1024, 0.9, 2, 900),      # near-complete: deep tie sets, saturation
+@pytest.mark.parametrize("V", [8, 64, 200])
+def test_scan_kernel_counts_an_edge_whose_sum_is_exactly_inf32(cuda_device,
+                                                                V):
+    """The scan kernel keeps _topo_scan's `ach` where a sum is INF32
+    exactly (B = 5: the last CTA holds one contig)."""
+    from alignasm_tpu_torch.ops import cuda_topo
+
+    slabs = torch.from_numpy(_inf_sum_slabs(5, V)).to(cuda_device)
+    rows = cuda_topo.topo_scan_nxt8(slabs)
+    assert torch.equal(rows, tdense.solve_slab_topo_nxt8(slabs))
+    assert rows[:, V].tolist() == [1] * 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Bk", [32, 64, 128])
+@pytest.mark.parametrize("V,density,seed,nv,B,into_dest", [
+    (512, 0.08, 9, None, 3, False),     # random DAG
+    (512, 0.0005, 4, None, 3, False),   # mostly unreachable
+    (512, 0.05, 3, 300, 3, False),      # padding past nv (dest mid-slab)
+    (1024, 0.02, 1, None, 3, False),
+    (1024, 0.9, 2, 900, 3, False),      # near-complete: deep tie sets
+    (2048, 0.01, 5, None, 1, False),    # a lone contig (B = 1)
+    # dest below the last blocks, with edges into it from the rows past
+    # it: the dest-below-lo cell of the nxt rule
+    (1024, 0.03, 6, 200, 3, True),
 ])
 def test_blocked_kernel_matches_plain_on_the_card(cuda_device, V, density,
-                                                  seed, nv, Bk):
+                                                  seed, nv, B, into_dest, Bk):
     """The blocked solve kernel bit-equals its plain version, with a
-    padding slab (all INF32, dest = src = 0) behind the random ones."""
+    padding slab (all INF32, dest = src = 0) behind the random ones, and
+    (on DAG slabs) the plain scan's int16 row."""
     from alignasm_tpu_torch.ops import cuda_blocked
 
-    B = 3
     rag = ragged_to_device(_rand_wire(B, V, density, seed, nv), cuda_device)
     pad = torch.full((1, V + 1, V), tdense.INF32, dtype=torch.int32,
                      device=cuda_device)
     pad[0, V, :2] = 0
     slabs = torch.cat([tdense.densify_wire_ragged(rag, B, V), pad])
+    if into_dest:
+        assert max(_add_edges_into_dest(slabs, seed)[:B]) < V - Bk
     rows = cuda_blocked.blocked_dp_nxt16(slabs, Bk)
     assert torch.equal(rows, tdense.solve_slab_topo_nxt16_blocked(slabs, Bk))
+    # an edge (r, dest) with dest below r's block feeds the blocked rows'
+    # nxt only, the scan's every value: there the rows depend on Bk
+    if not into_dest:
+        assert torch.equal(rows, tdense.solve_slab_topo_nxt16(slabs))
     assert rows[-1, V] == 1  # the padding slab: src = dest, fast
 
 
