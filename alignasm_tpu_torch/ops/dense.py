@@ -400,28 +400,36 @@ def solve_slabs(packed, n_sweeps: int):
     return torch.cat([out5[:, 0], out5[:, 1], picks, src[:, None]], 1)
 
 
-def dense_solve_batch(ws, wa, dest, n_sweeps: int):
+def dense_solve_batch(ws, wa, dest, n_sweeps: int, order=None, jacobi=None):
     """Batched (B, V, V) dense solve (counterpart of
     alignasm_tpu/ops/dense.py:564): ``ws``/``wa`` int32 score / anomaly
     matrices, INF32 in ``ws`` where no edge exists, ``dest`` (B,) int32
     -> (B, 5, V) int32 ``[d_s, d_a, floor_a, cnt_tot, cnt_min]``.  CPU
-    tensors take the plain path, CUDA tensors the sweep kernel."""
+    tensors take the plain path, CUDA tensors the sweep kernel.
+    ``order``, (B, V) int32 with ``order[b, t]`` the vertex at
+    topological position t, is the kernel's hint for its one-pass branch
+    (csrc/topo_pass.cuh); it never changes the result.  ``jacobi``, one
+    int32 on the card, gains the number of contigs that took the kernel's
+    Jacobi branch.  The plain path reads neither."""
     if _on_cuda(ws):
         from alignasm_tpu_torch.ops import cuda_sweep
 
-        return cuda_sweep.sweep_dense_batch(ws, wa, dest, n_sweeps)
+        return cuda_sweep.sweep_dense_batch(ws, wa, dest, n_sweeps, order,
+                                            jacobi)
     return solve_one(ws, wa, ws < INF32, dest, n_sweeps)
 
 
-def dense_solve_slabs(packed, n_sweeps: int):
+def dense_solve_slabs(packed, n_sweeps: int, order=None, jacobi=None):
     """The sweep solve on (B, V+1, V) packed slabs -> (B, 2V+4) int32
     rows (counterpart of ``dense_solve_slabs_pallas``,
     alignasm_tpu/ops/dense.py:674, without its batch padding to 8).  CPU
-    tensors take the plain path, CUDA tensors the sweep kernel."""
+    tensors take the plain path, CUDA tensors the sweep kernel, with
+    ``order`` (default: the identity) and ``jacobi`` as in
+    ``dense_solve_batch``."""
     if _on_cuda(packed):
         from alignasm_tpu_torch.ops import cuda_sweep
 
-        return cuda_sweep.sweep_dense_slabs(packed, n_sweeps)
+        return cuda_sweep.sweep_dense_slabs(packed, n_sweeps, order, jacobi)
     return solve_slabs(packed, n_sweeps)
 
 

@@ -90,17 +90,22 @@ def sp_batch32_plain(eu, ev, es, ea, evalid, src, dest, V: int, n_sweeps):
     return torch.stack([s, a, fa, cnt_tot, cnt_min], 1)
 
 
-def sp_batch32(eu, ev, es, ea, evalid, src, dest, V: int, n_sweeps=None):
+def sp_batch32(eu, ev, es, ea, evalid, src, dest, V: int, n_sweeps=None,
+               order=None, jacobi=None):
     """Distance-to-sink, anomaly floor and walk counts of a bucket
     (counterpart of alignasm_tpu/ops/relax32.py:37) -> (B, 5, V) int32.
-    CPU tensors take the plain path, CUDA tensors the kernel."""
+    CPU tensors take the plain path, CUDA tensors the kernel, with
+    ``order`` (B, V) int32 its hint (default: the identity; the result
+    does not depend on it) and ``jacobi`` its branch count, as in
+    ``ops/dense.py:dense_solve_batch``."""
     from alignasm_tpu_torch.ops.dense import _on_cuda
 
     if _on_cuda(eu):
         from alignasm_tpu_torch.ops import cuda_relax32
 
         return cuda_relax32.relax32(eu, ev, es, ea, evalid, src, dest, V,
-                                    V if n_sweeps is None else n_sweeps)
+                                    V if n_sweeps is None else n_sweeps,
+                                    order, jacobi)
     return sp_batch32_plain(eu, ev, es, ea, evalid, src, dest, V, n_sweeps)
 
 

@@ -420,6 +420,29 @@ def pack_dataset(dataset, cfg: AlignasmConfig, stats):
     return results, packed
 
 
+def topo_hint(pg, V: int):
+    """(V,) int32 topological order of a PackedGraph's vertices, padded to
+    V, derived from ``erank`` alone: its high bits are each edge target's
+    position in the Kahn order of the reversed graph
+    (engine/device.py:pack_graph), so an edge u -> v has kahn_pos[u] >
+    kahn_pos[v].  Vertices that are no edge's target come first (nothing
+    points into them), then the targets by that position descending, then
+    the padding vertices: every edge goes from an earlier position to a
+    later one.  It is the sweep kernels' hint (csrc/topo_pass.cuh), which
+    they check before they trust it."""
+    from alignasm_tpu_torch.engine.device import _RANK_SHIFT
+
+    n = pg.g.n_vertices
+    kahn_pos = np.full(n, -1, np.int64)
+    kahn_pos[pg.ev] = pg.erank >> _RANK_SHIFT
+    targets = np.flatnonzero(kahn_pos >= 0)
+    return np.concatenate([
+        np.flatnonzero(kahn_pos < 0),
+        targets[np.argsort(-kahn_pos[targets], kind="stable")],
+        np.arange(n, V),
+    ]).astype(np.int32)
+
+
 def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
     """Bucket the packed contigs as the JAX plane does: sorted by
     (vertices, edges), ``batch_size`` per bucket, V and E padded to
@@ -428,7 +451,8 @@ def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
     matrices) when every contig fits int32 and V <= ``dense_max_v`` and
     no cell holds two edges, else "sparse32" or "sparse64" ((B, E) edge
     lists).  Returns dicts of chunk, B, V, n_sweeps, kind and the numpy
-    ``args`` of the bucket's solve."""
+    ``args`` of the bucket's solve; a dense or sparse32 bucket's args end
+    with its (B, V) ``topo_hint`` rows, the kernels' ``order``."""
     from alignasm_tpu_torch.ops.dense import pack_dense_bucket
 
     packed = sorted(packed, key=lambda t: (t[1].g.n_vertices, len(t[1].eu)))
@@ -441,10 +465,13 @@ def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
         n_sweeps = _next_pow2(max(pg.g.n for _i, pg in chunk) + 2)
         use32 = all(_fits32(pg) for _i, pg in chunk)
         bucket = dict(chunk=chunk, B=B, V=V, n_sweeps=n_sweeps)
+        order = np.stack([topo_hint(pg, V) for _i, pg in chunk]) \
+            if use32 else None
         if use32 and V <= cfg.dense_max_v:
             dense = pack_dense_bucket(chunk, V)
             if dense is not None:
-                buckets.append(dict(bucket, kind="dense", args=dense))
+                buckets.append(dict(bucket, kind="dense",
+                                    args=(*dense, order)))
                 continue
 
         def pad(arrs, dtype, fill=0):
@@ -465,7 +492,7 @@ def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
         srcs = np.asarray([pg.g.src for pg in pgs], np.int32)
         dests = np.asarray([pg.g.dest for pg in pgs], np.int32)
         if use32:
-            args = (eu, ev, es, ea, evalid, srcs, dests)
+            args = (eu, ev, es, ea, evalid, srcs, dests, order)
         else:
             enz = pad([pg.enz for pg in pgs], np.int32)
             etot = pad([pg.etot for pg in pgs], np.int32)
@@ -476,22 +503,28 @@ def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
     return buckets
 
 
-def launch_python_bucket(bucket, dev):
+def launch_python_bucket(bucket, dev, jacobi=None):
     """Move one bucket's arrays to ``dev`` and start its solve
     (asynchronous on CUDA).  Returns the (B, 5, V) int32 tensor of a
     dense or sparse32 bucket, or the dict of (B, V) tensors of a sparse64
-    one."""
+    one.  ``jacobi``, one int32 on ``dev``, gains the count of a dense or
+    sparse32 bucket's contigs that took the kernel's Jacobi branch (the
+    plain versions add nothing)."""
     from alignasm_tpu_torch.ops.dense import dense_solve_batch
     from alignasm_tpu_torch.ops.relax import solve_graph_batch
     from alignasm_tpu_torch.ops.relax32 import sp_batch32
 
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in bucket["args"]]
-    if bucket["kind"] == "dense":
-        return dense_solve_batch(*args, n_sweeps=bucket["n_sweeps"])
-    if bucket["kind"] == "sparse32":
-        return sp_batch32(*args, V=bucket["V"], n_sweeps=bucket["n_sweeps"])
-    return solve_graph_batch(*args, V=bucket["V"], n_sweeps=bucket["n_sweeps"])
+    kind, ns = bucket["kind"], bucket["n_sweeps"]
+    if kind == "sparse64":
+        return solve_graph_batch(*args, V=bucket["V"], n_sweeps=ns)
+    *args, order = args
+    if kind == "dense":
+        return dense_solve_batch(*args, n_sweeps=ns, order=order,
+                                 jacobi=jacobi)
+    return sp_batch32(*args, V=bucket["V"], n_sweeps=ns, order=order,
+                      jacobi=jacobi)
 
 
 def _solve_torch_python(dataset, cfg: AlignasmConfig, dev, stats,
@@ -511,10 +544,11 @@ def _solve_torch_python(dataset, cfg: AlignasmConfig, dev, stats,
     stats["pack_s"] = round(time.perf_counter() - t0, 4)
     t0 = time.perf_counter()
     counted = {"dense": "dense_buckets", "sparse32": "int32_buckets"}
+    jacobi = torch.zeros(1, dtype=torch.int32, device=dev)
     for bucket in buckets:
         if bucket["kind"] in counted:
             stats[counted[bucket["kind"]]] += 1
-        bucket["pending"] = launch_python_bucket(bucket, dev)
+        bucket["pending"] = launch_python_bucket(bucket, dev, jacobi)
     stats["launch_s"] = round(time.perf_counter() - t0, 4)  # H2D + launch
     t0 = time.perf_counter()
     for bucket in buckets:
@@ -538,6 +572,7 @@ def _solve_torch_python(dataset, cfg: AlignasmConfig, dev, stats,
                 reasons = stats["fallback_reasons"]
                 reasons[str(fb)] = reasons.get(str(fb), 0) + 1
     stats["finish_s"] = round(time.perf_counter() - t0, 4)  # wait + finish
+    stats["jacobi"] = int(jacobi)  # after every bucket's rows: no extra wait
     return ([r[0] for r in results], [r[1] for r in results],
             [r[2] for r in results])
 

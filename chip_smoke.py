@@ -16,13 +16,19 @@ Run from the root of a checkout, on a machine with a CUDA device:
    every block size it takes (Bk = 32, 64, 128: the A/B behind the
    scheduler's Bk, printed as a per-Bk line), its rows also held to the
    plain scan's int16 rows, and the sweep solve's slab entry
-   (``n_sweeps = V``) on long2000's widest V <= 256 slab bucket.  Python
+   (``n_sweeps = V``, its default hint) on long2000's widest V <= 256
+   slab bucket, and on its V = 512 slab buckets (the workspace pass, a
+   library size: printed, not summed into the kernels line).  Python
    plane: packs long2000 as ``solve_dataset_torch(dataset, ...)`` does;
-   the sweep solve on every dense bucket, the int32 sparse relaxation on
-   every int32 bucket, and the dense shortest-path kernel (a library
-   entry, no engine path calls it) on the dense buckets' contigs, its
-   s / a rows held to the sweep solve's d_s / d_a.  Times both with CUDA
-   events after a warm-up.
+   the sweep solve on every dense bucket and the int32 sparse relaxation
+   on every int32 bucket, each with the bucket's topological hint
+   (``scheduler.topo_hint``; no contig may take a kernel's Jacobi
+   branch), and the dense shortest-path kernel (a library entry, no
+   engine path calls it) on the dense buckets' contigs, its s / a rows
+   held to the sweep solve's d_s / d_a.  Each sweep-solve and relaxation
+   bucket runs once more with its hint reversed, so that check (a) sends
+   its contigs to the kernel's Jacobi branch, held to the same plain
+   rows.  Times both with CUDA events after a warm-up.
 3. End to end, each path with the launch counts set to 0 just before it
    and read just after: the native plane, ``solve_dataset_torch(None,
    cfg, src_paths=...)`` at the default ``device_max_v`` (8192) on the
@@ -30,8 +36,11 @@ Run from the root of a checkout, on a machine with a CUDA device:
    ``native.run`` on the same input, the engine's counts held to the JAX
    device engine's; then the Python plane, ``solve_dataset_torch(
    read_paf(long2000), cfg)`` on the card, its files byte-compared with
-   ``native.run``'s and its counts held to the JAX Python plane's.  Every
-   kernel of a path must have launched in its run.
+   ``native.run``'s and its counts held to the JAX Python plane's (and
+   no Jacobi-branch contig).  Every kernel of a path must have launched
+   in its run.  Then the int64 relaxation (PyTorch ops) on a seeded
+   bucket whose path sums pass int32: the card's result against the
+   CPU's, its time and bound.
 4. Profile: the native plane once more on each corpus under
    torch.profiler: the device's busy time and share, and the scan's and
    the blocked solve's kernel time.
@@ -77,8 +86,9 @@ CORPORA = {
 }
 # The JAX Python plane's counts on long2000 (solve_dataset_tpu(read_paf(
 # long2000), cfg) on the CPU, batch_size 256).
+# No contig may take a sweep kernel's Jacobi branch there.
 PYTHON_PLANE = dict(device=1952, fallback=34, singleton=14, oversize=0,
-                    dense_buckets=6, int32_buckets=2)
+                    dense_buckets=6, int32_buckets=2, jacobi=0)
 # bigv: four chain contigs of tests/test_scale.py, (segments, seed) each,
 # of 970 to 7,226 vertices.
 BIGV = ((600, 11), (1200, 23), (2500, 35), (4500, 47))
@@ -124,8 +134,16 @@ PATH_OPS = 15
 # conversions, clamp, division and negation, the four-key lexicographic
 # compare (10), six selects.
 DENSE_SP_OPS = 25
+# Per edge of the int64 relaxation, one pass: the four sums, the packed
+# key (2), the mapq key (3), the three-key lexicographic compare (6), six
+# selects, the floor's add and min, the walk count's add and the min-walk
+# test (4), 28 int64 operations of two 32-bit issue slots each.
+SP64_OPS = 56
 SCAN_OPS = 25        # per needed cell: three reduction rounds a row
 FOLD_OPS = 15        # blocked solve: per needed cell, folded once
+# The sweep solve's largest V of its register pass (csrc/sweep_dense.cu
+# kRegV); above it the workspace pass runs.
+MAX_PASS_V = 256
 
 
 def fail(msg: str):
@@ -293,24 +311,91 @@ def check_blocked(name, V, padB, slabs, results, by_bk):
     return "; ".join(parts)
 
 
+def jacobi_count():
+    """A zeroed Jacobi-branch count for a sweep kernel's ``jacobi``."""
+    import torch
+
+    return torch.zeros(1, dtype=torch.int32, device="cuda")
+
+
+def check_jacobi_branch(what, kernel, reversed_order, n_want, want):
+    """The Jacobi branch of a sweep kernel at a main-path shape: ``kernel(
+    order, jacobi)`` with the reversed hint must send ``n_want`` contigs to
+    the branch and still equal the plain rows ``want``.  Returns the
+    branch's time."""
+    import torch
+
+    jacobi = jacobi_count()
+    got = kernel(reversed_order, jacobi)
+    if int(jacobi) != n_want:
+        fail(f"{what}: {int(jacobi)} contigs took the Jacobi branch under "
+             f"the reversed hint, expected {n_want}")
+    if not torch.equal(got, want):
+        fail(f"{what}: the Jacobi branch disagrees with plain (reversed "
+             f"hint)")
+    return cuda_ms(lambda: kernel(reversed_order, None), 3)
+
+
+def reversed_misses(slabs):
+    """Contigs of a slab bucket that check (a) fails under the reversed
+    identity hint (position V-1-v): those with an edge (u, v), v >= u,
+    other than an edge into dest while dest's row holds no edge."""
+    import torch
+
+    from alignasm_tpu_torch.ops import dense
+
+    B, _, V = slabs.shape
+    edge = slabs[:, :V] != dense.INF32
+    col = torch.arange(V, device=slabs.device)
+    dest = slabs[:, V, 0].long()
+    on = (dest >= 0) & (dest < V)
+    row_empty = ~edge[torch.arange(B, device=slabs.device),
+                      dest.clamp(0, V - 1)].any(1)
+    exempt = (col[None, None, :] == dest[:, None, None]) \
+        & (row_empty | ~on)[:, None, None]
+    up = col[None, :] >= col[:, None]
+    return int((edge & up[None] & ~exempt).any(2).any(1).sum())
+
+
 def check_slab_sweep(name, V, padB, slabs, results):
     """The sweep solve's slab entry (``dense_solve_slabs``, a library
-    entry) against its plain version on one V <= 256 bucket, n_sweeps =
-    V."""
+    entry) against its plain version on one bucket, n_sweeps = V, with its
+    default hint (the identity: the exporter's slabs are in Kahn order; no
+    contig may take the Jacobi branch) and with the identity reversed (the
+    Jacobi branch).  A V <= 256 bucket (the register pass) goes into the
+    kernels line; a larger one (the workspace pass, a library size) is
+    printed only."""
+    import torch
+
     from alignasm_tpu_torch.ops import cuda_sweep, dense
 
-    rows = cuda_sweep.sweep_dense_slabs(slabs, V)
+    jacobi = jacobi_count()
+    rows = cuda_sweep.sweep_dense_slabs(slabs, V, jacobi=jacobi)
     rows_p = dense.solve_slabs(slabs, V)
     err = int((rows.long() - rows_p.long()).abs().max())
+    what = f"{name} V={V} B={padB} slab entry"
     if err:
-        fail(f"{name} V={V} B={padB}: sweep kernel (slabs) disagrees with "
-             f"plain (max_abs_err {err})")
-    ms = cuda_ms(lambda: cuda_sweep.sweep_dense_slabs(slabs, V), 5)
+        fail(f"{what}: sweep kernel disagrees with plain (max_abs_err {err})")
+    if int(jacobi):
+        fail(f"{what}: {int(jacobi)} contigs took the Jacobi branch")
+    flip = torch.arange(V - 1, -1, -1, dtype=torch.int32,
+                        device=slabs.device).expand(padB, V).contiguous()
+    n_rev = reversed_misses(slabs)
+    jac_ms = check_jacobi_branch(
+        what, lambda o, j: cuda_sweep.sweep_dense_slabs(slabs, V, o, j),
+        flip, n_rev, rows_p)
+    ms = cuda_ms(lambda: cuda_sweep.sweep_dense_slabs(slabs, V), 20)
+    branch = (f"Jacobi branch {jac_ms:.4f} ms (reversed hint, {n_rev} "
+              f"contigs)")
+    if V > MAX_PASS_V:
+        return (f"sweep_dense_slabs workspace pass {ms:.4f} ms, {branch}; "
+                f"bit-equal, jacobi 0")
     plain = cuda_ms(lambda: dense.solve_slabs(slabs, V), 1)
     edges = int((slabs[:, :V] != dense.INF32).sum())
-    record(results, "sweep_dense_slabs", err, ms, plain,
-           nbytes_of(slabs, rows), edges * PATH_OPS)
-    return f"sweep_dense_slabs {ms:.4f} ms (plain {plain:.4f})"
+    bound = record(results, "sweep_dense_slabs", err, ms, plain,
+                   nbytes_of(slabs, rows), edges * PATH_OPS)
+    return (f"sweep_dense_slabs {ms:.4f} ms (plain {plain:.4f}; {bound}; "
+            f"jacobi 0; {branch})")
 
 
 def phase_kernels(paths, cfg, device, results):
@@ -346,7 +431,7 @@ def phase_kernels(paths, cfg, device, results):
                 solve = check_scan(name, V, padB, slabs, results)
             else:
                 solve = check_blocked(name, V, padB, slabs, results, by_bk)
-            if name == "long2000" and kind == "ragged" and V <= tsched.MAX_V:
+            if name == "long2000" and kind == "ragged":
                 solve += "; " + check_slab_sweep(name, V, padB, slabs,
                                                  results)
             print(f"kernels {name} V={V} B={realB} padB={padB} wire={kind}: "
@@ -420,40 +505,113 @@ def phase_python_kernels(paf, cfg, device, results):
     print(f"python plane: {len(packed)} contigs packed into "
           f"{len(buckets)} buckets in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    for _i, pg in packed:
+        tsched.topo_hint(pg, tsched._next_pow2(pg.g.n_vertices))
+    print(f"python plane: topo_hint of {len(packed)} contigs in "
+          f"{time.perf_counter() - t0:.4f} s (host)", flush=True)
     for bk in buckets:
         B, V, ns, kind = bk["B"], bk["V"], bk["n_sweeps"], bk["kind"]
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                for a in bk["args"]]
+        *args, order = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                        for a in bk["args"]]
         if kind == "dense":
             ws, wa, dest = args
             edge = ws < dense.INF32
-            got = cuda_sweep.sweep_dense_batch(ws, wa, dest, ns)
-            want = dense.solve_one(ws, wa, edge, dest, ns)
-            k_fn = lambda: cuda_sweep.sweep_dense_batch(ws, wa, dest, ns)  # noqa: E731
+            kernel = lambda o, j: cuda_sweep.sweep_dense_batch(  # noqa: E731
+                ws, wa, dest, ns, o, j)
             p_fn = lambda: dense.solve_one(ws, wa, edge, dest, ns)  # noqa: E731
             kname, edges = "sweep_dense", int(edge.sum())
         elif kind == "sparse32":
-            got = cuda_relax32.relax32(*args, V, ns)
-            want = relax32.sp_batch32_plain(*args, V, ns)
-            k_fn = lambda: cuda_relax32.relax32(*args, V, ns)  # noqa: E731
+            kernel = lambda o, j: cuda_relax32.relax32(  # noqa: E731
+                *args, V, ns, o, j)
             p_fn = lambda: relax32.sp_batch32_plain(*args, V, ns)  # noqa: E731
             kname, edges = "relax32", int(args[4].sum())
         else:
             fail(f"long2000 python: unexpected {kind} bucket (V={V})")
+        jacobi = jacobi_count()
+        got, want = kernel(order, jacobi), p_fn()
         err = int((got.long() - want.long()).abs().max())
+        what = f"long2000 python V={V} B={B} {kname}"
         if err:
-            fail(f"long2000 python V={V} B={B}: {kname} kernel disagrees "
-                 f"with plain (max_abs_err {err})")
-        ms, plain = cuda_ms(k_fn, 5), cuda_ms(p_fn, 1)
-        record(results, kname, err, ms, plain, nbytes_of(*args, got),
-               edges * PATH_OPS)
+            fail(f"{what}: kernel disagrees with plain (max_abs_err {err})")
+        if int(jacobi):
+            fail(f"{what}: {int(jacobi)} contigs took the Jacobi branch")
+        jac_ms = check_jacobi_branch(what, kernel, order.flip(1).contiguous(),
+                                     B, want)
+        ms = cuda_ms(lambda: kernel(order, None), 20)
+        plain = cuda_ms(p_fn, 1)
+        bound = record(results, kname, err, ms, plain, nbytes_of(*args, got),
+                       edges * PATH_OPS)
         extra = ""
         if kind == "dense":
             n = check_dense_sp(bk, got, device, results)
             extra = f"; dense_sp bit-equal on {n} contigs, s / a = sweep's"
         print(f"kernels long2000 python V={V} B={B} n_sweeps={ns} {kind}: "
               f"bit-equal; {kname} {ms:.4f} ms/bucket (plain {plain:.4f}; "
-              f"{edges} edges){extra}", flush=True)
+              f"{bound}; {edges} edges; jacobi 0; Jacobi branch {jac_ms:.4f} "
+              f"ms, reversed hint, {B} contigs){extra}", flush=True)
+
+
+def sparse64_bucket(seed, B=256, V=512):
+    """A seeded bucket of the int64 relaxation's kind: B chain-like DAGs
+    of V vertices (i -> j for j in i+1 .. i+8, dest V-1, src 0) whose
+    scores in [2^25, 2^26) make every src -> dest path sum pass 2^31
+    (at least 64 edges), as ``python_buckets`` pads edge lists: the
+    (eu, ev, es, ea, enz, etot, erank, evalid, src, dest) arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lists = []
+    for _b in range(B):
+        u = np.repeat(np.arange(V - 1), 3)
+        v = np.minimum(u + rng.integers(1, 9, len(u)), V - 1)
+        u, v = np.unique(np.stack([u, v]), axis=1)
+        lists.append((u, v))
+    E = 1 << max(len(u) for u, _v in lists).bit_length()
+    arrs = [np.zeros((B, E), t) for t in
+            (np.int32, np.int32, np.int64, np.int32, np.int32, np.int32,
+             np.int64)]
+    evalid = np.zeros((B, E), bool)
+    for b, (u, v) in enumerate(lists):
+        k = len(u)
+        nz = rng.integers(0, 60, k)
+        for arr, val in zip(arrs, (u, v, rng.integers(2**25, 2**26, k),
+                                   rng.integers(0, 3, k), nz,
+                                   nz + rng.integers(1, 60, k),
+                                   rng.permutation(k))):
+            arr[b, :k] = val
+        evalid[b, :k] = True
+    return (*arrs, evalid, np.zeros(B, np.int32), np.full(B, V - 1, np.int32))
+
+
+def phase_sparse64(device):
+    """The int64 relaxation (``ops/relax.py:solve_graph_batch``, PyTorch
+    ops, no hand-written kernel) on a seeded V = 512 bucket whose path sums
+    pass int32: the card's result against the CPU's, its time and its
+    bound."""
+    import torch
+
+    from alignasm_tpu_torch.ops import relax
+
+    V = 512
+    host = [torch.from_numpy(a) for a in sparse64_bucket(64, V=V)]
+    args = [a.to(device) for a in host]
+    got = relax.solve_graph_batch(*args, V=V, n_sweeps=V)
+    want = relax.solve_graph_batch(*host, V=V, n_sweeps=V)
+    for k, t in want.items():
+        if not torch.equal(got[k].cpu(), t):
+            fail(f"sparse64: solve_graph_batch on the card differs from the "
+                 f"CPU's in {k}")
+    if int(want["d_s"][:, 0].min()) < 2**31:
+        fail("sparse64: the bucket's path sums do not pass int32")
+    ms = cuda_ms(lambda: relax.solve_graph_batch(*args, V=V, n_sweeps=V), 3)
+    edges = int(host[7].sum())
+    nbytes = nbytes_of(*args) + nbytes_of(*got.values())
+    by_bytes = 1e3 * nbytes / MEM_BYTES_PER_S
+    by_ops = 1e3 * edges * SP64_OPS / OPS_PER_S
+    print(f"sparse64 solve_graph_batch (PyTorch ops) V={V} B={len(host[0])} "
+          f"{edges} edges: card = CPU; {ms:.4f} ms; bound {by_bytes:.4f} ms "
+          f"by bytes, {by_ops:.4f} by operations", flush=True)
 
 
 def outputs(prefix):
@@ -530,6 +688,7 @@ def phase_python_plane(paf, cfg, device, tmp):
           f"byte-equal to native.run; device {stats['device']} fallback "
           f"{stats['fallback']} singleton {stats['singleton']}; buckets dense "
           f"{stats['dense_buckets']} int32 {stats['int32_buckets']}; "
+          f"jacobi {stats['jacobi']}; "
           f"read_paf {t_read:.4f} s, solve {t_solve:.4f} s ({n / t_solve:.1f} "
           f"contigs/s; pack_s {stats['pack_s']} launch_s {stats['launch_s']} "
           f"finish_s {stats['finish_s']})", flush=True)
@@ -632,6 +791,7 @@ def main() -> int:
         reset_launch_counts()
         phase_python_plane(paths["long2000"], cfg, device, tmp)
         counts["python"] = launch_counts()
+        phase_sparse64(device)
         phase_profile(paths, cfg, device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -385,3 +385,125 @@ def test_dense_sp_kernel_matches_plain_on_the_card(cuda_device, V, density,
     want = dense_sp.dense_sp_plain(*mats, drow, n_sweeps)
     for k in dense_sp.DSP_ROWS:
         assert torch.equal(got[k], want[k]), k
+
+
+def _shuffled_dag_edges(B, V, seed):
+    """Random DAGs numbered in a shuffled order, as edge lists: position i
+    links to up to three later positions within 64, position V-1 is dest
+    (a sink) and takes an edge from a fifth of the others, and a chain
+    0 -> 1 -> 2 -> 3 makes every longest path at least 3 edges (V >= 4).
+    Returns [(u, v, ws, wa)] in the shuffled numbering, the dests and the
+    hints (orders[b, t] = the vertex at position t)."""
+    rng = np.random.default_rng(seed)
+    edges, dests = [], np.empty(B, np.int32)
+    orders = np.empty((B, V), np.int32)
+    for b in range(B):
+        pairs = {(i, i + 1) for i in range(min(3, V - 1))}
+        for i in range(V - 1):
+            for j in rng.integers(i + 1, min(V, i + 65), rng.integers(0, 4)):
+                pairs.add((i, int(j)))
+            if rng.random() < 0.2:
+                pairs.add((i, V - 1))
+        u, v = np.array(sorted(pairs), np.int64).reshape(-1, 2).T
+        perm = rng.permutation(V).astype(np.int32)
+        edges.append((perm[u], perm[v],
+                      rng.integers(0, 1000, len(u)).astype(np.int32),
+                      rng.integers(0, 3, len(u)).astype(np.int32)))
+        dests[b], orders[b] = perm[V - 1], perm
+    return edges, dests, orders
+
+
+def _pass_case(edges, dests, orders, case):
+    """Edges, hints and n_sweeps of one branch case: "hint" (the pass),
+    "reversed" (every edge backwards), "short" (n_sweeps = 1 below every
+    contig's longest path) and "wrap" (one edge per contig whose score
+    does not fit the packed cell, check (c))."""
+    V = orders.shape[1]
+    if case == "reversed":
+        orders = orders[:, ::-1].copy()
+    if case == "wrap":
+        edges = [(u, v, np.where(np.arange(len(u)) == 0, (1 << 28) + 5, ws)
+                  .astype(np.int32), wa) for u, v, ws, wa in edges]
+    return edges, orders, 1 if case == "short" else V
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hint", "reversed", "short", "wrap"])
+@pytest.mark.parametrize("V", [8, 64, 256, 512])
+def test_sweep_kernel_pass_and_jacobi_branch_on_the_card(cuda_device, V,
+                                                         case):
+    """Both entries of the sweep solve bit-equal their plain versions on
+    shuffled-numbering DAGs; with a valid hint no contig takes the Jacobi
+    branch, with a reversed hint, a short n_sweeps or a cell that could
+    wrap every contig does.  V = 512 runs the workspace pass; the slab
+    entry's default hint (the identity) is valid on slabs numbered by
+    position."""
+    from alignasm_tpu_torch.ops import cuda_sweep
+
+    B = 9
+    edges, dests, orders = _shuffled_dag_edges(B, V, 20 + V)
+    edges, orders, ns = _pass_case(edges, dests, orders, case)
+    ws = np.full((B, V, V), tdense.INF32, np.int32)
+    wa = np.zeros((B, V, V), np.int32)
+    packed = np.full((B, V + 1, V), tdense.INF32, np.int32)
+    for b, (u, v, s, a) in enumerate(edges):
+        ws[b, u, v], wa[b, u, v] = s, a
+        packed[b, u, v] = np.where(s < (1 << 28), s | (a << ANOM_SHIFT),
+                                   tdense.INF32 + 5)  # (c): anomaly 4
+        packed[b, V, :2] = dests[b], orders[b, 0]
+    ws, wa, dest, order, packed = _to(cuda_device, ws, wa, dests, orders,
+                                      packed)
+    want_j = 0 if case == "hint" else B
+    jacobi = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = cuda_sweep.sweep_dense_batch(ws, wa, dest, ns, order, jacobi)
+    assert int(jacobi) == want_j
+    assert torch.equal(got, tdense.solve_one(ws, wa, ws < tdense.INF32, dest,
+                                             ns))
+    rows = cuda_sweep.sweep_dense_slabs(packed, ns, order, jacobi)
+    assert int(jacobi) == 2 * want_j  # the count adds up over calls
+    assert torch.equal(rows, tdense.solve_slabs(packed, ns))
+    if case == "hint":  # renumber by position: the identity is the hint
+        pos = torch.argsort(order, 1)  # vertex -> position
+        idx = order.long()
+        by_pos = packed[:, :V].gather(
+            1, idx[:, :, None].expand(B, V, V)).gather(
+            2, idx[:, None, :].expand(B, V, V))
+        tail = pos.gather(1, packed[:, V, :2].long()).to(torch.int32)
+        slabs = torch.cat([by_pos, torch.full_like(packed[:, V:], 0)], 1)
+        slabs[:, V, :2] = tail
+        rows = cuda_sweep.sweep_dense_slabs(slabs.contiguous(), ns,
+                                            jacobi=jacobi)
+        assert int(jacobi) == 0
+        assert torch.equal(rows, tdense.solve_slabs(slabs, ns))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hint", "reversed", "short", "wrap"])
+@pytest.mark.parametrize("V", [8, 256, 1024, 8192])
+def test_relax32_kernel_pass_and_jacobi_branch_on_the_card(cuda_device, V,
+                                                           case):
+    """The int32 sparse relaxation bit-equals its plain version on
+    shuffled-numbering DAGs padded with invalid edges, the branch counted
+    as in the sweep solve's test.  V = 8192 holds the pass's workspace in
+    global memory, the others in shared memory."""
+    from alignasm_tpu_torch.ops import cuda_relax32, relax32
+
+    B = 3 if V == 8192 else 7
+    edges, dests, orders = _shuffled_dag_edges(B, V, 40 + V)
+    edges, orders, ns = _pass_case(edges, dests, orders, case)
+    E = 1 << max(len(u) for u, _v, _s, _a in edges).bit_length()
+    eu, ev, es, ea = (np.zeros((B, E), np.int32) for _ in range(4))
+    evalid = np.zeros((B, E), bool)
+    rng = np.random.default_rng(V)
+    for b, (u, v, s, a) in enumerate(edges):
+        k = rng.permutation(len(u))  # the kernel's CSR sorts them
+        eu[b, :len(u)], ev[b, :len(u)] = u[k], v[k]
+        es[b, :len(u)], ea[b, :len(u)] = s[k], a[k]
+        evalid[b, :len(u)] = True
+    args = _to(cuda_device, eu, ev, es, ea, evalid, np.zeros(B, np.int32),
+               dests)
+    order = _to(cuda_device, orders)[0]
+    jacobi = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = cuda_relax32.relax32(*args, V, ns, order, jacobi)
+    assert int(jacobi) == (0 if case == "hint" else B)
+    assert torch.equal(got, relax32.sp_batch32_plain(*args, V, ns))

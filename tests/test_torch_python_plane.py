@@ -255,6 +255,7 @@ def _python_plane_vs_jax(paf, batch_size=256):
     for key in ("device", "fallback", "singleton", "oversize", "dense_buckets",
                 "int32_buckets", "fallback_reasons", "host_plane"):
         assert stats[key] == jstats[key], (key, stats, jstats)
+    assert stats["jacobi"] == 0  # the plain versions take no branch
     return stats
 
 
@@ -520,6 +521,8 @@ def test_new_wrappers_take_only_cuda_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_dense_sp.dense_sp(m, m, m, m, m, d.view(2, 1, 1).expand(2, 1, 8)
                                .contiguous(), 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # a branch count
+        cuda_sweep.check_jacobi(torch.zeros(1, dtype=torch.int32))
     assert cuda_sweep.sweep_dense_batch.launches == 0
     assert cuda_relax32.relax32.launches == 0
     assert cuda_dense_sp.dense_sp.launches == 0
