@@ -63,10 +63,10 @@ def run(argv=None, device="cuda") -> int:
     from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
     args = build_arg_parser().parse_args(argv)
-    for path in (args.paf_loc, args.alt):
-        if path and not path.endswith(".paf"):
-            print(f"Wrong PAF file : {path}", file=sys.stderr)
-            return 1
+    if not args.paf_loc.endswith(".paf"):
+        print(f"Wrong PAF file : {os.path.abspath(args.paf_loc)}",
+              file=sys.stderr)
+        return 1
     cfg = dataclasses.replace(
         DEFAULT_CONFIG,
         alt_baseline=args.alt_baseline,
@@ -74,6 +74,10 @@ def run(argv=None, device="cuda") -> int:
         upgrade_mode=args.upgrade_mode,
         device_routing="always",
     )
+    if args.alt and not args.alt.endswith(".paf"):
+        print(f"Wrong PAF file : {os.path.abspath(args.alt)}",
+              file=sys.stderr)
+        return 1
     t0 = time.perf_counter()
     out_p, alt_p, all_p = output_paths(args.paf_loc)
     try:
@@ -88,6 +92,7 @@ def run(argv=None, device="cuda") -> int:
         dataset = read_paf(args.paf_loc)
         if args.alt:
             merge_alt_paf(dataset, args.alt, cfg.alt_baseline)
+        print("File read complete")
         outs, alt_outs, max_outs = solve_dataset_torch(dataset, cfg,
                                                        device=device)
         stats = solve_dataset_torch.last_stats

@@ -1,8 +1,8 @@
 """Device ops of the port: plain PyTorch versions (dense.py, relax32.py,
 relax.py, dense_sp.py), the host-to-device wire transport (wire.py) and
 the CUDA kernel wrappers (cuda_densify.py, cuda_topo.py, cuda_blocked.py,
-cuda_sweep.py, cuda_relax32.py, cuda_dense_sp.py; kernels in ../csrc,
-built by _build.py)."""
+cuda_sweep.py, cuda_relax32.py, cuda_relax64.py, cuda_dense_sp.py;
+kernels in ../csrc, built by _build.py)."""
 
 from __future__ import annotations
 
@@ -10,8 +10,8 @@ from __future__ import annotations
 def _wrappers():
     """Kernel name -> the wrappers that launch it."""
     from alignasm_tpu_torch.ops import (
-        cuda_blocked, cuda_dense_sp, cuda_densify, cuda_relax32, cuda_sweep,
-        cuda_topo,
+        cuda_blocked, cuda_dense_sp, cuda_densify, cuda_relax32,
+        cuda_relax64, cuda_sweep, cuda_topo,
     )
 
     return {
@@ -22,6 +22,7 @@ def _wrappers():
         "sweep_dense": (cuda_sweep.sweep_dense_batch,
                         cuda_sweep.sweep_dense_slabs),
         "relax32": (cuda_relax32.relax32,),
+        "relax64": (cuda_relax64.relax64,),
         "dense_sp": (cuda_dense_sp.dense_sp,),
     }
 

@@ -103,11 +103,15 @@ def _bind(lib) -> None:
     lib.aln_relax32_work_words.argtypes = [i32, i64]
     lib.aln_relax32_work_words.restype = ctypes.c_int64
     lib.aln_dense_sp.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, p, p]
+    lib.aln_relax64.argtypes = [i32, p, p, p, p, p, p, p, p, p, i64, i64, i32,
+                                i32, p, p, p, p]
+    lib.aln_relax64_work_words.argtypes = [i32, i64]
+    lib.aln_relax64_work_words.restype = ctypes.c_int64
     for fn in (lib.aln_densify_scatter, lib.aln_densify_wire16,
                lib.aln_topo_scan_nxt8, lib.aln_blocked_dp_nxt16,
                lib.aln_blocked_dp_scratch_words, lib.aln_sweep_dense,
                lib.aln_sweep_dense_work_words, lib.aln_relax32,
-               lib.aln_dense_sp):
+               lib.aln_dense_sp, lib.aln_relax64):
         fn.restype = ctypes.c_int
     lib.aln_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aln_cuda_error_string.restype = ctypes.c_char_p

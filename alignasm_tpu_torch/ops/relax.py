@@ -2,10 +2,13 @@
 
 PyTorch counterpart of ``alignasm_tpu/ops/relax.py:solve_graph_batch``
 (with the packing constants of ``alignasm_tpu/ops/semiring.py``): the
-Python plane runs it for the rare buckets whose path sums do not fit
-int32 (``fits32`` false).  It is PyTorch ops on either device (int64
-``scatter_reduce``), as the JAX package leaves it to XLA; no corpus of
-the repo reaches it on the card.
+Python plane runs it for the buckets whose path sums may not fit int32
+(``fits32`` false: contigs whose query gaps are long, as on a
+chromosome-scale scaffold with sparse alignments).
+``solve_graph_batch`` takes the plain path (PyTorch ops, int64
+``scatter_reduce``) for CPU tensors and launches the hand-written kernel
+(ops/cuda_relax64.py, csrc/relax64.cu) for CUDA tensors; there is no
+fallback from one to the other.
 
 Distances relax as packed int64 lexicographic keys: k1 = sum << 16 |
 anom, then the mapq fraction as ``QUL_ONE - (nz << 30) // tot`` and the
@@ -34,12 +37,12 @@ def _pack_k1(s, a):
     return (s << ANOM_BITS) | a
 
 
-def solve_graph_batch(eu, ev, es, ea, enz, etot, erank, evalid, src, dest,
-                      V: int, n_sweeps=None):
-    """One bucket of contig graphs, (B, E) edge arrays (``evalid`` bool,
-    the rest integer) and (B,) src / dest -> dict of (B, V) int64
-    ``d_s, d_a, d_nz, d_tot, d_eid, floor_a, cnt_tot, cnt_min`` (d_eid
-    int32), as the JAX function returns them."""
+def solve_graph_batch_plain(eu, ev, es, ea, enz, etot, erank, evalid, src,
+                            dest, V: int, n_sweeps=None):
+    """Plain form of ``solve_graph_batch``: one bucket of contig graphs,
+    (B, E) edge arrays (``evalid`` bool, the rest integer) and (B,) src /
+    dest -> dict of (B, V) int64 ``d_s, d_a, d_nz, d_tot, d_eid, floor_a,
+    cnt_tot, cnt_min`` (d_eid int32), as the JAX function returns them."""
     del src  # as in the JAX package: the anomaly floor is symmetric
     B, E = eu.shape
     if n_sweeps is None:
@@ -113,3 +116,21 @@ def solve_graph_batch(eu, ev, es, ea, enz, etot, erank, evalid, src, dest,
     cnt_min = counts(ach)
     return dict(d_s=s, d_a=a, d_nz=nz, d_tot=tot, d_eid=eid.to(torch.int32),
                 floor_a=fa, cnt_tot=cnt_tot, cnt_min=cnt_min)
+
+
+def solve_graph_batch(eu, ev, es, ea, enz, etot, erank, evalid, src, dest,
+                      V: int, n_sweeps=None):
+    """The int64 relaxation of a bucket (counterpart of
+    alignasm_tpu/ops/relax.py:73) -> the dict of ``solve_graph_batch_plain``.
+    CPU tensors take the plain path, CUDA tensors the kernel (which takes
+    ``es`` and ``erank`` int64, the other edge arrays int32)."""
+    from alignasm_tpu_torch.ops.dense import _on_cuda
+
+    if _on_cuda(eu):
+        from alignasm_tpu_torch.ops import cuda_relax64
+
+        return cuda_relax64.relax64(eu, ev, es, ea, enz, etot, erank, evalid,
+                                    src, dest, V,
+                                    V if n_sweeps is None else n_sweeps)
+    return solve_graph_batch_plain(eu, ev, es, ea, enz, etot, erank, evalid,
+                                   src, dest, V, n_sweeps)

@@ -16,7 +16,10 @@ which contigs take the fast finish, so the files are byte-identical to the
 native engine's whatever it answers.  A host-plane failure (wire export,
 finish) degrades the affected contigs to the native solve with the reason
 in ``stats["device_error"]``; a kernel that fails to build, launch or run
-raises.  It covers buckets with V <= 8192 on one device.
+raises.  It covers buckets with V <= 8192 on one device.  With
+``device_routing="never"`` nothing goes to the device: a run that writes
+takes the fused ``native.run`` (``_solve_native_routed``), an in-memory
+run the exporter's native solve of every contig.
 
 The Python plane (``src_paths=None``, a parsed ``dataset``; the JAX
 package's test and degrade plane): per contig ``build_graph`` ->
@@ -24,14 +27,15 @@ package's test and degrade plane): per contig ``build_graph`` ->
 (vertices, edges), each solved by the dense sweep solve (V <=
 ``dense_max_v``, ops/dense.py), the int32 sparse relaxation
 (ops/relax32.py) or, when path sums may pass int32, the int64 one
-(ops/relax.py); then ``finish_contig``, or ``finish_contig_exact`` on
-``Fallback``.  A ``NativeError`` of the native plane degrades to it when
-a ``dataset`` was given, with a RuntimeWarning and the reason in
-``stats["native_error"]``.
+(ops/relax.py, csrc/relax64.cu); then ``finish_contig``, or
+``finish_contig_exact`` on ``Fallback``.  A ``NativeError`` of the native
+plane degrades to it when a ``dataset`` was given, with a RuntimeWarning
+and the reason in ``stats["native_error"]``.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import warnings
@@ -59,13 +63,10 @@ def _check_supported(cfg: AlignasmConfig) -> None:
     if cfg.device_routing == "auto":
         raise NotImplementedError(
             "device_routing='auto' needs the port's own calibration; the "
-            "JAX package's cost model was measured on a TPU (ROADMAP.md: "
-            "'Port calibration and auto routing')")
-    if cfg.device_routing != "always":
-        raise NotImplementedError(
-            f"device_routing={cfg.device_routing!r}: the port only runs the "
-            "device path; use alignasm_tpu_torch.native.run for a host-only run")
-    if cfg.device_max_v > MAX_DEVICE_V:
+            "JAX package's cost model was measured on a TPU (ROADMAP.md, "
+            "queue 1: 'Routing: device_routing=\"auto\"'); use 'always' "
+            "or 'never'")
+    if cfg.device_routing == "always" and cfg.device_max_v > MAX_DEVICE_V:
         raise NotImplementedError(
             f"device_max_v={cfg.device_max_v} > {MAX_DEVICE_V}: a bucket "
             "of V = 16384 holds 1 GB of slab per contig and no corpus of "
@@ -261,6 +262,7 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
         overlap_thread = threading.Thread(target=overlap, daemon=True)
         overlap_thread.start()
 
+    t0 = time.perf_counter()
     sync_s = cfinish_s = 0.0
     try:
         for idxs, realB, V, (host, ev), ok in launches:
@@ -285,6 +287,9 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
                 cfinish_s += time.perf_counter() - t2
                 continue
             cfinish_s += time.perf_counter() - t2
+            stats.setdefault("bucket_phases", []).append(
+                (int(V), int(len(idxs)), round(t2 - t1, 4),
+                 round(time.perf_counter() - t2, 4)))
             stats["device"] += n_fast
             stats["fallback"] += n_fb
     finally:  # the exporter must outlive the overlap thread's solve
@@ -295,19 +300,57 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
     if "device_error" in stats:
         warnings.warn("device path degraded to native solve: "
                       + stats["device_error"], RuntimeWarning, stacklevel=2)
+    stats["finish_s"] = round(time.perf_counter() - t0, 4)  # wait + finish
     stats["sync_s"] = round(sync_s, 4)        # device wait + transfer
     stats["cfinish_s"] = round(cfinish_s, 4)  # threaded C++ finish
 
 
-def _solve_torch_native(cfg: AlignasmConfig, src_paths, write_prefix, device,
-                        stats):
+def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix):
+    """``device_routing="never"`` with output files: the fused native
+    pipeline, as ``--engine native`` runs it (the JAX scheduler's
+    ``_solve_native_routed``; its ``cost_model`` key waits for the port's
+    calibration)."""
+    t0 = time.perf_counter()
+    alt = src_paths[1]
+    if alt and os.path.getsize(alt) == 0:
+        alt = None  # a zero-size alt disables the merge, as in the reference
+    run_stats = native.run(
+        src_paths[0], alt_path=alt, alt_baseline=cfg.alt_baseline,
+        non_skip_linkable=cfg.non_skip_linkable, threads=0,
+        out_prefix=write_prefix, config=cfg,
+    )
+    solve_dataset_torch.last_stats = {
+        "device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
+        "host_plane": "native", "routing": cfg.device_routing,
+        "routed": "fused-native", "device_routed_frac": 0.0,
+        "written_natively": True,
+        "read_s": run_stats["read_s"], "solve_s": run_stats["solve_s"],
+        "write_s": run_stats["write_s"],
+        "n_contigs": run_stats["contigs"],
+        "n_records": run_stats["records"],
+        "total_s": round(time.perf_counter() - t0, 4),
+    }
+    return (None, None, None)
+
+
+def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
+                        device, allow_device: bool):
     """The C++ host plane does parse -> graph build -> wire export ->
     device-assisted finish -> output writing; Python only orchestrates
     bucket-shaped launches.  Contigs outside the device envelope
     (singletons, oversize, over the vertex cap, over the score bound)
-    solve natively on a host thread that overlaps the device wait."""
+    solve natively on a host thread that overlaps the device wait.
+    Without ``allow_device`` every contig solves natively.  A ``dataset``
+    must hold the file's contigs (AssertionError otherwise, as in the JAX
+    scheduler)."""
     t_start = time.perf_counter()
     native.tune_heap()
+    stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
+             "host_plane": "native", "dense_buckets": 0, "native_direct": 0,
+             "routing": cfg.device_routing}
+    if allow_device:
+        stats["torch_device"] = str(device)
+    solve_dataset_torch.last_stats = stats
     exporter = native.GraphExporter(
         src_paths[0], alt_path=src_paths[1],
         alt_baseline=cfg.alt_baseline,
@@ -315,8 +358,11 @@ def _solve_torch_native(cfg: AlignasmConfig, src_paths, write_prefix, device,
         max_records=max(cfg.max_device_records, _device_cap(cfg)),
         config=cfg,
     )
+    stats["pack_open_s"] = round(time.perf_counter() - t_start, 4)
     try:
         n = len(exporter)
+        if dataset is not None and n != len(dataset.contigs):
+            raise AssertionError("native/python contig count mismatch")
         meta = exporter.meta_bulk()
         n_rec = meta[:, 1]
         stats["singleton"] = int((n_rec == 1).sum())
@@ -325,28 +371,42 @@ def _solve_torch_native(cfg: AlignasmConfig, src_paths, write_prefix, device,
         stats["n_records"] = int(n_rec.sum())
         stats["pack_s"] = round(time.perf_counter() - t_start, 4)
 
-        non_device = np.where(~_eligible_mask(meta, cfg))[0]
+        eligible = _eligible_mask(meta, cfg) if allow_device \
+            else np.zeros(n, bool)
+        non_device = np.where(~eligible)[0]
         exporter.prepare_results()  # pre-size result slots: the overlap
         # thread and the finish calls must not race a lazy resize
-        overlap = None
-        if len(non_device):
-            def overlap(idx=non_device):
-                t1 = time.perf_counter()
-                try:
-                    exporter.solve_subset(idx, format_out=True)
-                except Exception as exc:  # surfaced via stats
-                    stats["overlap_error"] = repr(exc)[:500]
-                stats["overlap_solve_s"] = round(time.perf_counter() - t1, 4)
+        if allow_device:
+            overlap = None
+            if len(non_device):
+                def overlap(idx=non_device):
+                    t1 = time.perf_counter()
+                    try:
+                        exporter.solve_subset(idx, format_out=True)
+                    except Exception as exc:  # surfaced via stats
+                        stats["overlap_error"] = repr(exc)[:500]
+                    stats["overlap_solve_s"] = round(
+                        time.perf_counter() - t1, 4)
 
-        _device_assist(exporter, cfg, meta, stats, device, overlap=overlap)
+            _device_assist(exporter, cfg, meta, stats, device,
+                           overlap=overlap)
+        else:  # device_routing="never", results in memory
+            stats["routed"] = "native-plane"
+            t0 = time.perf_counter()
+            exporter.solve_subset(non_device,
+                                  format_out=write_prefix is not None)
+            stats["overlap_solve_s"] = round(time.perf_counter() - t0, 4)
         # leftovers: export-rejected / device-error contigs (and the
         # overlap set if its thread failed)
         stats["native_direct"] = exporter.solve_remaining() \
             + len(non_device) - stats["singleton"]
+        stats["device_routed_frac"] = round(stats["device"] / n, 4) \
+            if n else 0.0
 
         if write_prefix is not None:
             t0 = time.perf_counter()
             exporter.write_results(write_prefix)
+            stats["written_natively"] = True
             stats["write_s"] = round(time.perf_counter() - t0, 4)
             result = (None, None, None)
         else:
@@ -587,6 +647,8 @@ def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
     With ``src_paths = (paf, alt_or_None)`` the native plane parses the
     files itself; with ``write_prefix`` it writes the three PAF files and
     (None, None, None) is returned, without it the per-contig results.
+    ``cfg.device_routing`` is "always" (the device pipeline) or "never"
+    (every contig on the host plane); "auto" raises NotImplementedError.
     Without ``src_paths`` (or when the native plane raises NativeError
     and a parsed ``dataset`` was given) the Python plane solves
     ``dataset`` in buckets of ``batch_size`` contigs and returns the
@@ -595,14 +657,12 @@ def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
     dev = as_device(device)
     if src_paths is not None:
         _check_supported(cfg)
-        stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
-                 "host_plane": "native", "dense_buckets": 0,
-                 "native_direct": 0, "routing": cfg.device_routing,
-                 "torch_device": str(dev)}
-        solve_dataset_torch.last_stats = stats
+        allow_device = cfg.device_routing == "always"
         try:
-            return _solve_torch_native(cfg, src_paths, write_prefix, dev,
-                                       stats)
+            if not allow_device and write_prefix is not None:
+                return _solve_native_routed(cfg, src_paths, write_prefix)
+            return _solve_torch_native(dataset, cfg, src_paths, write_prefix,
+                                       dev, allow_device)
         except native.NativeError as exc:
             if dataset is None:
                 raise  # no parsed dataset to degrade to

@@ -28,7 +28,13 @@ Run from the root of a checkout, on a machine with a CUDA device:
    held to the sweep solve's d_s / d_a.  Each sweep-solve and relaxation
    bucket runs once more with its hint reversed, so that check (a) sends
    its contigs to the kernel's Jacobi branch, held to the same plain
-   rows.  Times both with CUDA events after a warm-up.
+   rows.  The int64 relaxation kernel (``relax64``) on every int64
+   bucket of querysparse2000 (long2000 made query-sparse,
+   ``query_sparse``: every contig's path sums may pass int32, so the
+   Python plane makes eight int64 buckets of V 64-256) and on a seeded
+   V = 512 bucket whose path sums pass 2^31, against
+   ``solve_graph_batch_plain`` on the same CUDA tensors.  Times both
+   with CUDA events after a warm-up.
 3. End to end, each path with the launch counts set to 0 just before it
    and read just after: the native plane, ``solve_dataset_torch(None,
    cfg, src_paths=...)`` at the default ``device_max_v`` (8192) on the
@@ -37,10 +43,11 @@ Run from the root of a checkout, on a machine with a CUDA device:
    device engine's; then the Python plane, ``solve_dataset_torch(
    read_paf(long2000), cfg)`` on the card, its files byte-compared with
    ``native.run``'s and its counts held to the JAX Python plane's (and
-   no Jacobi-branch contig).  Every kernel of a path must have launched
-   in its run.  Then the int64 relaxation (PyTorch ops) on a seeded
-   bucket whose path sums pass int32: the card's result against the
-   CPU's, its time and bound.
+   no Jacobi-branch contig); then the Python plane on querysparse2000 the
+   same way (every bucket int64: ``relax64`` once a bucket; none of its
+   contigs is device-eligible on the native plane, so it runs no native
+   phase).  Every kernel of a path must have launched in its run (the
+   Python plane's counts are the two runs' sums).
 4. Profile: the native plane once more on each corpus under
    torch.profiler: the device's busy time and share, and the scan's and
    the blocked solve's kernel time.
@@ -89,6 +96,15 @@ CORPORA = {
 # No contig may take a sweep kernel's Jacobi branch there.
 PYTHON_PLANE = dict(device=1952, fallback=34, singleton=14, oversize=0,
                     dense_buckets=6, int32_buckets=2, jacobi=0)
+# The JAX Python plane's counts on querysparse2000 (solve_dataset_tpu(
+# read_paf(querysparse2000), cfg) on the CPU, batch_size 256): every
+# packed contig fails fits32, so every bucket is int64, and the port's
+# int64 buckets there: (V, B) each, and their valid edges.
+QUERYSPARSE = dict(device=1986, fallback=0, singleton=14, oversize=0,
+                   dense_buckets=0, int32_buckets=0)
+QUERYSPARSE_BUCKETS = ([(64, 256), (128, 256), (128, 256), (256, 256),
+                        (256, 256), (256, 256), (256, 256), (256, 194)],
+                       246_112)
 # bigv: four chain contigs of tests/test_scale.py, (segments, seed) each,
 # of 970 to 7,226 vertices.
 BIGV = ((600, 11), (1200, 23), (2500, 35), (4500, 47))
@@ -108,6 +124,8 @@ KERNELS = {
                           "alignasm_tpu/ops/dense.py:701", "library"),
     "relax32": ("alignasm_tpu_torch/csrc/relax32.cu",
                 "alignasm_tpu/ops/relax32.py:37", "python"),
+    "relax64": ("alignasm_tpu_torch/csrc/relax64.cu",
+                "alignasm_tpu/ops/relax.py:73", "python"),
     "dense_sp": ("alignasm_tpu_torch/csrc/dense_sp.cu",
                  "alignasm_tpu/ops/pallas_relax.py:160", "library"),
 }
@@ -174,6 +192,16 @@ def write_corpora(tmp: pathlib.Path) -> dict:
         paths[name] = tmp / f"{name}.paf"
         paths[name].write_text(text)
     return paths
+
+
+def write_querysparse(long2000: pathlib.Path) -> pathlib.Path:
+    """querysparse2000: long2000 made query-sparse (``query_sparse``);
+    the Python plane solves it in int64 buckets only, and no contig is
+    device-eligible on the native plane, so it stays out of that plane's
+    phases."""
+    path = long2000.with_name("querysparse2000.paf")
+    path.write_text(query_sparse(long2000.read_text()))
+    return path
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -584,34 +612,93 @@ def sparse64_bucket(seed, B=256, V=512):
     return (*arrs, evalid, np.zeros(B, np.int32), np.full(B, V - 1, np.int32))
 
 
-def phase_sparse64(device):
-    """The int64 relaxation (``ops/relax.py:solve_graph_batch``, PyTorch
-    ops, no hand-written kernel) on a seeded V = 512 bucket whose path sums
-    pass int32: the card's result against the CPU's, its time and its
-    bound."""
+def query_sparse(text, shift=4_000_000, grow=800_000_000):
+    """A PAF whose contigs' alignments lie sparse along a long query (as a
+    chromosome-scale scaffold of a large genome with sparse alignments):
+    the k-th record of each contig moves k * ``shift`` along the query,
+    and every query grows by ``grow``.  The uncapped query gaps push every
+    contig's path-sum bound past 2^29, so the Python plane solves it in
+    int64 buckets only (tests/test_torch_relax64.py makes the same)."""
+    out, seen = [], {}
+    for line in text.splitlines():
+        f = line.split("\t")
+        k = seen.get(f[0], 0)
+        seen[f[0]] = k + 1
+        f[1] = str(int(f[1]) + grow)
+        f[2] = str(int(f[2]) + k * shift)
+        f[3] = str(int(f[3]) + k * shift)
+        out.append("\t".join(f))
+    return "\n".join(out) + "\n"
+
+
+def check_relax64(what, host_args, V, ns, device):
+    """The int64 relaxation kernel against its plain version on the same
+    CUDA tensors (every output and dtype equal).  Returns (kernel ms,
+    plain ms, bytes, operations, the plain result): the bytes of every
+    input and output once, and SP64_OPS per valid edge."""
+    import numpy as np
     import torch
 
-    from alignasm_tpu_torch.ops import relax
+    from alignasm_tpu_torch.ops import cuda_relax64, relax
 
-    V = 512
-    host = [torch.from_numpy(a) for a in sparse64_bucket(64, V=V)]
-    args = [a.to(device) for a in host]
-    got = relax.solve_graph_batch(*args, V=V, n_sweeps=V)
-    want = relax.solve_graph_batch(*host, V=V, n_sweeps=V)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in host_args]
+    got = cuda_relax64.relax64(*args, V, ns)
+    want = relax.solve_graph_batch_plain(*args, V=V, n_sweeps=ns)
+    if list(got) != list(want):
+        fail(f"{what}: relax64 returns {list(got)}, plain {list(want)}")
     for k, t in want.items():
-        if not torch.equal(got[k].cpu(), t):
-            fail(f"sparse64: solve_graph_batch on the card differs from the "
-                 f"CPU's in {k}")
+        if got[k].dtype != t.dtype or not torch.equal(got[k], t):
+            fail(f"{what}: relax64 disagrees with plain in {k}")
+    ms = cuda_ms(lambda: cuda_relax64.relax64(*args, V, ns), 10)
+    plain = cuda_ms(
+        lambda: relax.solve_graph_batch_plain(*args, V=V, n_sweeps=ns), 1)
+    return (ms, plain, nbytes_of(*args) + nbytes_of(*got.values()),
+            int(args[7].sum()) * SP64_OPS, want)
+
+
+def phase_relax64_kernels(paf, cfg, device, results):
+    """The int64 relaxation kernel against its plain version on the card:
+    on every int64 bucket of ``paf`` (querysparse2000), packed and
+    bucketed as solve_dataset_torch's Python plane does (summed into the
+    kernels line), and on a seeded V = 512 bucket whose path sums pass
+    2^31 (printed)."""
+    from alignasm_tpu_torch.io.paf import read_paf
+    from alignasm_tpu_torch.runtime import scheduler as tsched
+
+    t0 = time.perf_counter()
+    stats = dict(singleton=0, oversize=0)
+    _res, packed = tsched.pack_dataset(read_paf(str(paf)), cfg, stats)
+    buckets = tsched.python_buckets(packed, cfg)
+    shapes = [(bk["V"], bk["B"]) for bk in buckets]
+    edges = sum(int(bk["args"][7].sum()) for bk in buckets)
+    if {bk["kind"] for bk in buckets} != {"sparse64"} \
+            or (shapes, edges) != QUERYSPARSE_BUCKETS:
+        fail(f"querysparse2000: buckets {shapes} of kinds "
+             f"{sorted({bk['kind'] for bk in buckets})}, {edges} edges; "
+             f"expected {QUERYSPARSE_BUCKETS} int64 buckets")
+    print(f"python plane querysparse2000: {len(packed)} contigs packed into "
+          f"{len(buckets)} int64 buckets ({edges} valid edges) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for bk in buckets:
+        V, B, ns = bk["V"], bk["B"], bk["n_sweeps"]
+        what = f"querysparse2000 python V={V} B={B} relax64"
+        ms, plain, nbytes, nops, _want = check_relax64(what, bk["args"], V,
+                                                       ns, device)
+        bound = record(results, "relax64", 0, ms, plain, nbytes, nops)
+        print(f"kernels querysparse2000 python V={V} B={B} n_sweeps={ns} "
+              f"sparse64: bit-equal; relax64 {ms:.4f} ms/bucket (plain "
+              f"{plain:.4f}; {bound}; {int(bk['args'][7].sum())} edges)",
+              flush=True)
+    V = 512
+    ms, plain, nbytes, nops, want = check_relax64(
+        f"sparse64 seeded V={V}", sparse64_bucket(64, V=V), V, V, device)
     if int(want["d_s"][:, 0].min()) < 2**31:
-        fail("sparse64: the bucket's path sums do not pass int32")
-    ms = cuda_ms(lambda: relax.solve_graph_batch(*args, V=V, n_sweeps=V), 3)
-    edges = int(host[7].sum())
-    nbytes = nbytes_of(*args) + nbytes_of(*got.values())
-    by_bytes = 1e3 * nbytes / MEM_BYTES_PER_S
-    by_ops = 1e3 * edges * SP64_OPS / OPS_PER_S
-    print(f"sparse64 solve_graph_batch (PyTorch ops) V={V} B={len(host[0])} "
-          f"{edges} edges: card = CPU; {ms:.4f} ms; bound {by_bytes:.4f} ms "
-          f"by bytes, {by_ops:.4f} by operations", flush=True)
+        fail("sparse64: the seeded bucket's path sums do not pass int32")
+    print(f"sparse64 relax64 seeded V={V} B=256 {nops // SP64_OPS} edges: "
+          f"bit-equal; {ms:.4f} ms (plain {plain:.4f}); bound "
+          f"{1e3 * nbytes / MEM_BYTES_PER_S:.4f} ms by bytes, "
+          f"{1e3 * nops / OPS_PER_S:.4f} by operations", flush=True)
 
 
 def outputs(prefix):
@@ -658,13 +745,20 @@ def phase_end_to_end(paths, cfg, device, tmp):
               flush=True)
 
 
-def phase_python_plane(paf, cfg, device, tmp):
+def phase_python_plane(name, paf, want_stats, cfg, device, tmp):
     """The Python plane on the card vs native.run's files on ``paf``
-    (written by phase_end_to_end), counts held to the JAX Python
-    plane's."""
+    (``native_<name>`` in ``tmp``: written by phase_end_to_end, or here
+    for a corpus that phase does not run), counts held to the JAX Python
+    plane's ``want_stats``."""
+    from alignasm_tpu_torch import native
     from alignasm_tpu_torch.io.paf import read_paf, write_outputs
     from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
+    if not (tmp / f"native_{name}.aln.paf").exists():
+        native.drain_teardowns()
+        native.run(str(paf), out_prefix=str(tmp / f"native_{name}"),
+                   config=cfg)
+        native.drain_teardowns()
     t0 = time.perf_counter()
     dataset = read_paf(str(paf))
     t_read = time.perf_counter() - t0
@@ -672,19 +766,19 @@ def phase_python_plane(paf, cfg, device, tmp):
     results = solve_dataset_torch(dataset, cfg, device=device)
     t_solve = time.perf_counter() - t0
     stats = solve_dataset_torch.last_stats
-    prefix = tmp / "python_long2000"
+    prefix = tmp / f"python_{name}"
     for suffix, outs, counts in zip((".aln", ".aln.alt", ".aln.all"), results,
                                     (False, False, True)):
         with open(f"{prefix}{suffix}.paf", "w") as fh:
             write_outputs(dataset, outs, fh, name_suffix_counts=counts)
-    if outputs(prefix) != outputs(tmp / "native_long2000"):
-        fail("long2000 python plane: output files differ from native.run")
-    for key, want in PYTHON_PLANE.items():
+    if outputs(prefix) != outputs(tmp / f"native_{name}"):
+        fail(f"{name} python plane: output files differ from native.run")
+    for key, want in want_stats.items():
         if stats.get(key) != want:
-            fail(f"long2000 python plane: stats[{key!r}] = {stats.get(key)}, "
+            fail(f"{name} python plane: stats[{key!r}] = {stats.get(key)}, "
                  f"expected {want}")
     n = len(dataset.contigs)
-    print(f"end-to-end long2000 python plane on {device}: {n} contigs, files "
+    print(f"end-to-end {name} python plane on {device}: {n} contigs, files "
           f"byte-equal to native.run; device {stats['device']} fallback "
           f"{stats['fallback']} singleton {stats['singleton']}; buckets dense "
           f"{stats['dense_buckets']} int32 {stats['int32_buckets']}; "
@@ -781,17 +875,29 @@ def main() -> int:
     try:
         t0 = time.perf_counter()
         paths = write_corpora(tmp)
+        qs_paf = write_querysparse(paths["long2000"])
         print(f"corpora written in {time.perf_counter() - t0:.1f} s",
               flush=True)
         phase_kernels(paths, cfg, device, results)
         phase_python_kernels(paths["long2000"], cfg, device, results)
+        phase_relax64_kernels(qs_paf, cfg, device, results)
         reset_launch_counts()
         phase_end_to_end(paths, cfg, device, tmp)
         counts["native"] = launch_counts()
         reset_launch_counts()
-        phase_python_plane(paths["long2000"], cfg, device, tmp)
-        counts["python"] = launch_counts()
-        phase_sparse64(device)
+        phase_python_plane("long2000", paths["long2000"], PYTHON_PLANE, cfg,
+                           device, tmp)
+        long2000 = launch_counts()
+        reset_launch_counts()
+        phase_python_plane("querysparse2000", qs_paf, QUERYSPARSE, cfg,
+                           device, tmp)
+        qs = launch_counts()
+        if qs["relax64"] != len(QUERYSPARSE_BUCKETS[0]):
+            fail(f"querysparse2000 python plane: relax64 launched "
+                 f"{qs['relax64']} times, expected one per int64 bucket")
+        # the Python plane's launches: its sweep_dense and relax32 buckets
+        # are long2000's, its int64 buckets querysparse2000's
+        counts["python"] = {k: long2000[k] + qs[k] for k in qs}
         phase_profile(paths, cfg, device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

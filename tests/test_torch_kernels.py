@@ -507,3 +507,75 @@ def test_relax32_kernel_pass_and_jacobi_branch_on_the_card(cuda_device, V,
     got = cuda_relax32.relax32(*args, V, ns, order, jacobi)
     assert int(jacobi) == (0 if case == "hint" else B)
     assert torch.equal(got, relax32.sp_batch32_plain(*args, V, ns))
+
+
+def _int64_edges(B, V, seed, deg, nv=None, ties=False):
+    """Random DAGs as the int64 relaxation's padded (B, E) edge lists, the
+    Python plane's dtypes: vertex i links to up to ``deg`` of i+1 .. i+8
+    (below nv), dest nv-1, src 0, scores in [2^25, 2^26) so that path sums
+    pass int32, the edges shuffled (the kernel's CSR sorts them) and at
+    least one invalid padding edge 0 -> 0 per contig.  ``ties`` draws
+    scores, anomalies and mapq fractions from a few values, so that many
+    candidates tie on k1 and k2 and erank decides."""
+    rng = np.random.default_rng(seed)
+    n = nv or V
+    lists = []
+    for _b in range(B):
+        u = np.repeat(np.arange(n - 1), deg)
+        v = np.minimum(u + rng.integers(1, 9, len(u)), n - 1)
+        u, v = np.unique(np.stack([u, v]), axis=1)
+        k = rng.permutation(len(u))
+        lists.append((u[k], v[k]))
+    E = 1 << max(len(u) for u, _v in lists).bit_length()
+    i32 = [np.zeros((B, E), np.int32) for _ in range(5)]  # eu ev ea enz etot
+    es, erank = np.zeros((B, E), np.int64), np.zeros((B, E), np.int64)
+    evalid = np.zeros((B, E), bool)
+    for b, (u, v) in enumerate(lists):
+        k = len(u)
+        nz = rng.integers(0, 3 if ties else 60, k)
+        vals = (u, v, rng.integers(0, 2 if ties else 3, k), nz,
+                nz + rng.integers(1, 3 if ties else 60, k))
+        for arr, val in zip(i32, vals):
+            arr[b, :k] = val
+        es[b, :k] = 2**25 + (rng.integers(0, 2, k) << 24 if ties
+                             else rng.integers(0, 2**25, k))
+        erank[b, :k] = rng.permutation(k)
+        evalid[b, :k] = True
+    eu, ev, ea, enz, etot = i32
+    return [eu, ev, es, ea, enz, etot, erank, evalid, np.zeros(B, np.int32),
+            np.full(B, n - 1, np.int32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,seed,deg,nv,ties,n_sweeps", [
+    (64, 1, 2, None, False, None), (64, 2, 3, 40, True, 5),
+    (512, 3, 3, None, False, None), (512, 4, 2, 300, True, 2),
+    (512, 5, 1, None, True, 0),
+    # the state outgrows shared memory: the global workspace
+    (2048, 6, 2, None, False, None), (2048, 7, 3, 1500, True, 100),
+])
+def test_relax64_kernel_matches_plain_on_the_card(cuda_device, V, seed, deg,
+                                                  nv, ties, n_sweeps):
+    """The int64 relaxation kernel bit-equals its plain version, every
+    output and dtype, converged or cut short by n_sweeps, and
+    ``solve_graph_batch`` on CUDA tensors launches it."""
+    from alignasm_tpu_torch.ops import _build, cuda_relax64, relax
+
+    B = 3 if V == 2048 else 7
+    args = _to(cuda_device, *_int64_edges(B, V, seed, deg, nv, ties))
+    ns = V if n_sweeps is None else n_sweeps
+    got = cuda_relax64.relax64(*args, V, ns)
+    want = relax.solve_graph_batch_plain(*args, V=V, n_sweeps=ns)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    if n_sweeps is None and nv is None and V >= 512:
+        assert int(want["d_s"][:, 0].min()) >= 2**31  # int32 would wrap
+    E = args[0].shape[1]
+    in_smem = _build.load_library().aln_relax64_work_words(V, E) == 0
+    assert in_smem == (V < 2048)
+    n = cuda_relax64.relax64.launches
+    again = relax.solve_graph_batch(*args, V=V, n_sweeps=ns)
+    assert cuda_relax64.relax64.launches == n + 1
+    assert all(torch.equal(again[k], want[k]) for k in want)

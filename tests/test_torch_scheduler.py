@@ -1,9 +1,11 @@
 """The port's end-to-end device path (alignasm_tpu_torch.runtime.scheduler)
 on the CPU, native plane: output files byte-equal to the committed
 goldens, to the native engine and to the JAX package's device engine,
-with the scan (V <= 256) and the blocked solve (256 < V <= 8192); the
-degrade-to-native contract; the guards of what the slice does not cover;
-and nothing of JAX or the JAX package in the port's import graph.
+with the scan (V <= 256) and the blocked solve (256 < V <= 8192);
+``device_routing="never"``, the stats keys, the contig-count check and
+the CLI's messages against the JAX package's; the degrade-to-native
+contract; the guards of what the slice does not cover; and nothing of
+JAX or the JAX package in the port's import graph.
 """
 
 import dataclasses
@@ -28,6 +30,10 @@ REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data"
 CFG = dataclasses.replace(DEFAULT_CONFIG, device_routing="always")
 SUFFIXES = ("", ".alt", ".all")
+# Stats keys of the JAX engine that the port does not write: the cost
+# model waits for the port's calibration, and the data mesh is the JAX
+# engine's over the 8 CPU devices that tests/conftest.py gives it.
+JAX_ONLY = {"cost_model", "data_mesh_devices"}
 
 
 def _outputs(prefix):
@@ -128,8 +134,9 @@ def _matches_native_and_jax_engine(tmp_path, paf, cfg):
                       write_prefix=str(tmp_path / "jax"))
     assert got == _outputs(tmp_path / "jax")
     jstats = solve_dataset_tpu.last_stats
-    for key in ("device", "fallback", "native_direct"):
+    for key in ("device", "fallback", "native_direct", "device_routed_frac"):
         assert stats[key] == jstats[key], (key, stats, jstats)
+    assert set(jstats) - JAX_ONLY <= set(stats), set(jstats) - set(stats)
     return stats
 
 
@@ -262,7 +269,6 @@ def test_kernel_failure_raises(tmp_path, monkeypatch, failure):
 @pytest.mark.parametrize("change,src_paths,needle", [
     (dict(device_max_v=16384), True, "Buckets above V = 8192"),
     (dict(device_routing="auto"), True, "calibration"),
-    (dict(device_routing="never"), True, "native.run"),
 ])
 def test_uncovered_configurations_raise(tmp_path, change, src_paths, needle):
     cfg = dataclasses.replace(CFG, **change)
@@ -307,3 +313,145 @@ def test_port_never_imports_jax(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert _outputs(tmp_path / "s") == _outputs(DATA / "synth50")
+
+
+NEVER = dataclasses.replace(CFG, device_routing="never")
+
+
+@pytest.mark.parametrize("name", ["synth50", "synth_hard"])
+def test_never_routing_writes_native_files(tmp_path, name):
+    """``device_routing="never"`` with output files runs the fused
+    native pipeline: the goldens, the JAX engine's files, and the JAX
+    engine's stats keys but ``cost_model`` (which waits for the port's
+    calibration)."""
+    from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
+
+    paf = DATA / f"{name}.paf"
+    got, stats = _port(paf, tmp_path / "port", NEVER)
+    assert got == _outputs(DATA / name)
+    solve_dataset_tpu(None, NEVER, src_paths=(str(paf), None),
+                      write_prefix=str(tmp_path / "jax"))
+    assert got == _outputs(tmp_path / "jax")
+    jstats = solve_dataset_tpu.last_stats
+    assert set(stats) == set(jstats) - {"cost_model"}
+    assert stats["routed"] == jstats["routed"] == "fused-native"
+    for key in ("device", "device_routed_frac", "n_contigs", "n_records"):
+        assert stats[key] == jstats[key], key
+
+
+def test_never_routing_in_memory_matches_jax_engine():
+    """Without output files every contig solves on the exporter's native
+    plane: results equal to the JAX engine's, its stats keys but
+    ``cost_model``, nothing on the device."""
+    from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
+
+    paths = (str(DATA / "synth_hard.paf"), None)
+    got = solve_dataset_torch(None, NEVER, src_paths=paths, device="cpu")
+    stats = solve_dataset_torch.last_stats
+    want = solve_dataset_tpu(None, NEVER, src_paths=paths)
+    jstats = solve_dataset_tpu.last_stats
+    assert repr(got) == repr(want)  # a dataclass repr names no module
+    assert set(stats) == set(jstats) - {"cost_model"}
+    assert stats["routed"] == "native-plane" and stats["device"] == 0
+    for key in ("native_direct", "singleton", "oversize", "n_contigs"):
+        assert stats[key] == jstats[key], key
+
+
+@pytest.mark.parametrize("write", [True, False])
+def test_never_routing_native_error_degrades_to_python_plane(
+        tmp_path, monkeypatch, write):
+    """A NativeError under "never" degrades to the Python plane when a
+    dataset was given (a RuntimeWarning, the reason in the stats), and
+    raises without one."""
+    from alignasm_tpu_torch.io.paf import read_paf
+
+    def boom(*a, **k):
+        raise tnative.NativeError("simulated native failure")
+
+    monkeypatch.setattr(tnative, "run", boom)
+    monkeypatch.setattr(tnative, "GraphExporter", boom)
+    paf = DATA / "synth50.paf"
+    prefix = str(tmp_path / "x") if write else None
+    with pytest.warns(RuntimeWarning, match="native host plane unavailable"):
+        got = solve_dataset_torch(read_paf(paf), NEVER,
+                                  src_paths=(str(paf), None),
+                                  write_prefix=prefix, device="cpu")
+    stats = solve_dataset_torch.last_stats
+    assert stats["host_plane"] == "python" and stats["device"] > 0
+    assert "simulated native failure" in stats["native_error"]
+    assert len(got[0]) == 50
+    with pytest.raises(tnative.NativeError):
+        solve_dataset_torch(None, NEVER, src_paths=(str(paf), None),
+                            write_prefix=prefix, device="cpu")
+
+
+@pytest.mark.parametrize("routing", ["always", "never"])
+def test_contig_count_mismatch_raises_as_in_jax(routing):
+    """A dataset that does not hold the file's contigs raises the JAX
+    scheduler's AssertionError in both packages."""
+    from alignasm_tpu.io.paf import read_paf as jax_read
+    from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
+    from alignasm_tpu_torch.io.paf import read_paf
+
+    cfg = dataclasses.replace(CFG, device_routing=routing)
+    paths = (str(DATA / "synth50.paf"), None)
+    small = DATA / "synth_small.paf"
+    with pytest.raises(AssertionError, match="contig count mismatch"):
+        solve_dataset_torch(read_paf(small), cfg, src_paths=paths,
+                            device="cpu")
+    with pytest.raises(AssertionError, match="contig count mismatch"):
+        solve_dataset_tpu(jax_read(small), cfg, src_paths=paths)
+
+
+def test_always_stats_keys_contain_jax_engine_keys(tmp_path):
+    """With "always" the native plane writes every stats key the JAX
+    engine writes but ``cost_model``: ``device_routed_frac``,
+    ``written_natively`` and one ``bucket_phases`` entry (V, contigs,
+    sync_s, finish_s) per finished bucket among them."""
+    from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
+
+    paf = DATA / "synth_hard.paf"
+    _got, stats = _port(paf, tmp_path / "port")
+    solve_dataset_tpu(None, CFG, src_paths=(str(paf), None),
+                      write_prefix=str(tmp_path / "jax"))
+    jstats = solve_dataset_tpu.last_stats
+    assert set(jstats) - JAX_ONLY <= set(stats), set(jstats) - set(stats)
+    assert stats["written_natively"] is True
+    assert stats["device_routed_frac"] == jstats["device_routed_frac"] > 0
+    phases = stats["bucket_phases"]
+    assert [p[0] for p in phases] == stats["bucket_vs"]
+    assert sum(p[1] for p in phases) == stats["device"] + stats["fallback"]
+
+
+def _cli_err(capsys, run, argv):
+    assert run(argv) == 1
+    return capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["in.txt"], ["in.paf", "-a", "alt.txt"]])
+def test_cli_wrong_paf_message_matches_jax(capsys, monkeypatch, tmp_path,
+                                           argv):
+    """"Wrong PAF file" names the absolute path, the PAF checked before
+    the alt, as the JAX CLI prints it."""
+    from alignasm_tpu import cli as jax_cli
+
+    monkeypatch.chdir(tmp_path)
+    got = _cli_err(capsys, lambda a: cli.run(a, device="cpu"), argv)
+    assert got == _cli_err(capsys, jax_cli.run, argv)
+    bad = argv[-1]
+    assert got == f"Wrong PAF file : {tmp_path / bad}\n"
+
+
+def test_cli_degrade_prints_file_read_complete(tmp_path, monkeypatch, capsys):
+    """On a NativeError the CLI reads the PAF, says "File read complete"
+    as the JAX CLI does, and writes the goldens."""
+    def boom(*a, **k):
+        raise tnative.NativeError("simulated native failure")
+
+    paf = tmp_path / "synth50.paf"
+    paf.write_bytes((DATA / "synth50.paf").read_bytes())
+    monkeypatch.setattr(tnative, "GraphExporter", boom)
+    assert cli.run([str(paf)], device="cpu") == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "File read complete" and out[1] == "Write output PAF file"
+    assert _outputs(tmp_path / "synth50") == _outputs(DATA / "synth50")
