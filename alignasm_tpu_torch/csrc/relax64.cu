@@ -15,29 +15,81 @@
 // the walk count and the count of min walks (the k1-achieving edges),
 // saturated at COUNT_SAT after every sweep.
 //
-// What bounds it: the sweeps.  Each loop is a DAG dynamic program that one
-// reverse-topological pass could compute, reading the edge lists (36 bytes
-// an edge) once; the Jacobi loops read them once a sweep.  The distance
-// loop must stay literal: its k2 is a mediant, not monotone in the
-// successor's key, and a row keeps its incumbent on ties, so the result
-// after n_sweeps sweeps can differ from one pass over final values.
+// What bounds it: dependent steps.  Each loop is a DAG dynamic program over
+// the edge lists (36 bytes an edge, read once: ~0.01 ms a bucket), but a
+// row can be solved only after its successors, so a contig costs its rows'
+// latency, not its bytes.
 //
-// Design: one CTA per contig.  Its threads counting-sort the contig's valid
-// edges by eu into a CSR (counts by atomicAdd, an exclusive scan, a scatter
-// of edge indices, as relax32.cu); a vertex that an invalid edge (padding,
-// eu = ev = 0) leaves is flagged, since that edge feeds INF to the vertex's
-// three minima as in JAX.  Then each sweep gives each thread whole vertices:
-// it folds the vertex's out-edges (three passes: m1, then m2 over the
-// m1-achievers, then m3 over the m2-achievers, with segment_min's identity
-// INT64_MAX for a vertex no edge leaves), picks the winner with the lowest
-// edge index among the ok edges whose erank equals m3, and writes the
-// vertex's new state into the other of two state buffers.  The state (two
-// buffers of five int64 vectors and the int32 eid) and the CSR live in
-// shared memory when they fit in kSmemBytes, else in a global workspace.
+// Design: a checked pass that replays the Jacobi loops without sweeping.
+// Write the distance update as u(t) = F(u(t-1), S(t-1)), S the states of
+// u's successors.  The minima (m1, m2, m3) and the winning edge depend on S
+// alone and a row takes the winner's candidate only when it is better, so
+// F(F(x, S), S) = F(x, S): u can change at sweep t only when t = 1 or a
+// successor changed at sweep t-1.  In reverse topological order each
+// vertex's change history (sweep, s, a, nz, tot) therefore follows from its
+// successors' histories alone: the row evaluates F at sweep 1 and at each
+// sweep after a successor's change, up to n_sweeps, reading each
+// successor's latest state before that sweep, and appends an entry when its
+// (s, a, nz, tot) changes (its own rank and winning edge stay in
+// registers).  That is exact at any n_sweeps, ties and the non-monotone
+// mediant included.  Before the first sweep after some successor is
+// reached every candidate is INF and F keeps the initial state, so the
+// row starts there (a chain's row then evaluates once).  The floor and the counts are monotone and cannot wrap
+// (the floor sums int32 anomalies along fewer than 8192 edges, a count is
+// at most COUNT_SAT times the degree), so, as in topo_pass.cuh, one pass
+// over the successors' final values equals their n_sweeps loops once the
+// longest path L <= n_sweeps; the same row computes them.  Per contig the
+// pass checks:
+//   (a) the host's hint (order[t] = the vertex at position t; null: the
+//       identity) is a permutation of 0..V-1, every valid edge lies in
+//       [0, V)^2, and every valid edge (u, v) has pos[v] > pos[u], or v is
+//       dest while dest's own row holds no edge (dest then never changes);
+//   (b) L <= n_sweeps (the floor and the counts only);
+//   (c) the contig is deep: 4 L >= 3 R, R its rows (vertices with a valid
+//       out-edge).  The pass costs R dependent rows, the Jacobi loops
+//       about 4 (L + 1) sweeps that spread a row a thread, so a wide DAG
+//       runs faster there (PERF.md: querysparse2000's chains, L = R, 2.5x
+//       faster in the pass; the seeded V = 512 DAGs, L ~ 0.45 R, 4.6x
+//       faster in the loops);
+//   (d) the history pool (at least kPool * V entries a contig) holds
+//       every entry.
+// A contig that fails (a), (c) or (d) is flagged 1 and the Jacobi branch,
+// the four literal loops, solves it in the launch that follows the pass;
+// one that fails (b) alone is flagged 2 and the branch runs the floor and
+// the counts from the pass's distance.  Each flagged contig is counted in
+// the caller's `jacobi` word when one is given.
+//
+// The pass: one CTA per contig counting-sorts the valid edges by eu into a
+// CSR, copying each edge's fields into the workspace in CSR order (a row
+// reads no device memory); an invalid edge only flags its tail, whose
+// three minima then start at INF (the padding edge feeds them INF in JAX).
+// A row folds its edges in one pass into the literal m1, m2 over the
+// m1-achievers and m3 over the m2-achievers (Fold; the mapq key, a 64-bit
+// division, only where a comparison needs its value), picks the winner as
+// the lowest edge index among the reached edges whose erank equals m3, and
+// keeps every sum, shift and pack on uint64_t (the JAX and PyTorch int64
+// arithmetic wraps, signed overflow in C++ does not).  Each edge keeps a
+// cursor into its head's history across the row's evaluations.  What a
+// row costs is its chain of dependent instructions (PERF.md has the
+// cycles a row by phase).  One warp steps the rows in reverse hint order
+// twice: first each vertex's longest path (int32, for (b) and (c)), then
+// the rows, its lanes over a row's edges (each lane looks its head up and
+// computes the candidate, the fold runs on the shuffled candidates); a
+// row of at most one edge runs in every lane alike, without shuffles.
+// The history is a list per vertex in a pool with one cursor.  The
+// workspace (pool, per-vertex
+// vectors, CSR) lives in shared memory when it fits one CTA's (kSmemOne),
+// the pool taking what two CTAs an SM (kSmemTwo), or else one, leave; else
+// a global workspace.
+//
+// Jacobi branch: one CTA per flagged contig, the literal loops.  Its
+// threads build the same CSR, then each sweep gives each thread whole
+// vertices: three passes over the out-edges (m1, m2, m3), the winner, the
+// new state into the other of two buffers; then the floor and both counts.
 // A loop stops once a sweep changes no word of the contig (the next state
 // is a function of the current one only, so the result equals the full
-// n_sweeps).  Every sum, shift and pack runs on uint64_t: the JAX and
-// PyTorch int64 arithmetic wraps, signed overflow in C++ does not.
+// n_sweeps).  Its state and CSR live in shared memory when they fit
+// kSmemBytes, else in the global workspace.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,8 +103,17 @@ constexpr int kAnomBits = 16;
 constexpr int kQulBits = 30;
 constexpr int64_t kQulOne = int64_t(1) << kQulBits;
 constexpr int kMaxV = 8192;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // the Jacobi branch
+constexpr int kPassThreads = 128;  // the pass
 constexpr int64_t kSmemBytes = 96 * 1024;
+// The pass's shared-memory budgets: two CTAs an SM (228 KB less 1 KB
+// reserved a CTA, halved) or one (the 227 KB opt-in limit), each less
+// the kernel's static shared words.
+constexpr int64_t kSmemTwo = 113 * 1024 - 64;
+constexpr int64_t kSmemOne = 227 * 1024 - 64;
+constexpr int kPool = 4;                  // least history entries a vertex
+constexpr int32_t kNoTime = 0x7fffffff;   // no further change
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int64_t add64(int64_t x, int64_t y) {
   return (int64_t)((uint64_t)x + (uint64_t)y);
@@ -66,8 +127,16 @@ __device__ __forceinline__ int64_t pack_k1(int64_t s, int64_t a) {
   return (int64_t)(((uint64_t)s << kAnomBits) | (uint64_t)a);
 }
 
-// Floor division, as torch.div(rounding_mode="floor") and jnp's //.
+// Floor division, as torch.div(rounding_mode="floor") and jnp's //.  Both
+// operands below 2^52 are exact in double, and the correctly rounded
+// quotient is then within 1/2 of x / y: one correction step gives the floor.
 __device__ __forceinline__ int64_t floor_div(int64_t x, int64_t y) {
+  constexpr int64_t kExact = int64_t(1) << 52;
+  if (x >= 0 && x < kExact && y > 0 && y < kExact) {
+    const int64_t q = (int64_t)((double)x / (double)y);
+    const int64_t r = x - q * y;
+    return r < 0 ? q - 1 : (r >= y ? q + 1 : q);
+  }
   if (y == -1) return (int64_t)(0 - (uint64_t)x);
   const int64_t q = x / y;
   return (x % y != 0 && ((x < 0) != (y < 0))) ? q - 1 : q;
@@ -78,6 +147,585 @@ __device__ __forceinline__ int64_t qul_key(int64_t nz, int64_t tot) {
   return (int64_t)((uint64_t)kQulOne -
                    (uint64_t)floor_div(num, tot == 0 ? 1 : tot));
 }
+
+// Exclusive scan of n int32 counts in place, by the 32 lanes of warp 0, a
+// chunk a lane.
+__device__ void warp_scan(int32_t* c, int32_t n) {
+  const int lane = threadIdx.x & 31;
+  const int32_t per = (n + 31) / 32;
+  const int32_t lo = min(lane * per, n), hi = min(lo + per, n);
+  int32_t sum = 0;
+  for (int32_t i = lo; i < hi; ++i) sum += c[i];
+  int32_t incl = sum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int32_t y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  int32_t run = incl - sum;
+  for (int32_t i = lo; i < hi; ++i) {
+    const int32_t x = c[i];
+    c[i] = run;
+    run += x;
+  }
+}
+
+// ----------------------------------------------------------------------
+// The checked pass.
+
+// A contig's pass workspace: the history pool (`cap` entries: s, a, nz,
+// tot, the sweep of the change and the next entry of the same vertex); per
+// vertex the floor, the list's head and last entry, pos (then the rows'
+// order), L, the invalid-edge flag and the two counts; the CSR's row
+// starts (V + 1) and, in
+// CSR order, each valid edge's index and fields (a row reads its edges from
+// the workspace, never from device memory) and the row's cache of it: the
+// head's latest entry at the row's last evaluation (-1: its initial
+// state) and whether that state is reached.
+struct Pass {
+  int64_t *hs, *ha, *hnz, *htot, *fa, *es, *erank;
+  int32_t *htime, *hnext, *head, *last, *pos, *len, *inv, *ct, *cm, *start,
+      *eidx, *ev, *ea, *enz, *etot, *cp, *cok;
+};
+
+__host__ __device__ int64_t pass_bytes(int32_t V, int64_t E, int64_t P) {
+  const int64_t bytes =
+      8 * (4 * P + V + 2 * E) + 4 * (2 * P + 8 * (int64_t)V + 1 + 7 * E);
+  return (bytes + 7) / 8 * 8;
+}
+
+// The pool's capacity, at least kPool * V entries: the rest of two CTAs'
+// shared memory an SM when that holds them, else the rest of one CTA's,
+// else kPool * V in the global workspace.  (A chain changes each vertex
+// about once; a wide DAG's vertices a few times: PERF.md.)
+int64_t pool_entries(int32_t V, int64_t E) {
+  const int64_t least = (int64_t)kPool * V, fixed = pass_bytes(V, E, 0);
+  if (pass_bytes(V, E, least) <= kSmemTwo) return (kSmemTwo - fixed) / 40;
+  if (pass_bytes(V, E, least) <= kSmemOne) return (kSmemOne - fixed) / 40;
+  return least;
+}
+
+bool pass_in_smem(int32_t V, int64_t E) {
+  return pass_bytes(V, E, pool_entries(V, E)) <= kSmemOne;
+}
+
+__device__ Pass pass_at(int64_t* base, int32_t V, int64_t E, int64_t P) {
+  Pass w;
+  w.hs = base;
+  w.ha = base + P;
+  w.hnz = base + 2 * P;
+  w.htot = base + 3 * P;
+  w.fa = base + 4 * P;
+  w.es = w.fa + V;
+  w.erank = w.es + E;
+  int32_t* q = (int32_t*)(w.erank + E);
+  w.htime = q;
+  w.hnext = q + P;
+  w.head = q + 2 * P;
+  w.last = w.head + V;
+  w.pos = w.last + V;
+  w.len = w.pos + V;
+  w.inv = w.len + V;
+  w.ct = w.inv + V;
+  w.cm = w.ct + V;
+  w.start = w.cm + V;
+  w.eidx = w.start + V + 1;
+  w.ev = w.eidx + E;
+  w.ea = w.ev + E;
+  w.enz = w.ea + E;
+  w.etot = w.enz + E;
+  w.cp = w.etot + E;
+  w.cok = w.cp + E;
+  return w;
+}
+
+// What a row reads: the contig's workspace, and its outputs.
+struct Ctx {
+  Pass w;
+  int32_t V, dest, limit, cap;
+  int* cursor;
+  int64_t* out;  // the contig's d_s; the other outputs BV apart
+  int64_t BV;
+  int32_t* out_eid;
+};
+
+// The visible state of a vertex: what its predecessors' candidates read.
+struct St {
+  int64_t s, a, nz, tot;
+};
+
+__device__ __forceinline__ St init_state(int32_t v, int32_t dest) {
+  return St{v == dest ? 0 : kInf, 0, 0, 0};
+}
+
+// Vertex v's state at pool entry p (-1: its initial state).
+__device__ __forceinline__ St state_of(const Ctx& c, int32_t v, int32_t p) {
+  if (p < 0) return init_state(v, c.dest);
+  return St{c.w.hs[p], c.w.ha[p], c.w.hnz[p], c.w.htot[p]};
+}
+
+// The candidate of the edge at CSR slot k through a head in state v.
+__device__ __forceinline__ St cand_of(const Pass& w, int32_t k, const St& v) {
+  return St{add64(v.s, w.es[k]), add64(v.a, w.ea[k]), add64(v.nz, w.enz[k]),
+            add64(v.tot, w.etot[k])};
+}
+
+// A mapq key below INF without dividing: nz in [0, 2^33) and tot > 0 make
+// nz << 30 a non-negative int64, so the key is at most QUL_ONE.
+__device__ __forceinline__ bool key_below_inf(int64_t nz, int64_t tot) {
+  return nz >= 0 && nz < (int64_t(1) << 33) && tot > 0;
+}
+
+// The literal minima of one sweep at a row, in one pass over its edges in
+// any order: m1 over every edge (INF for an unreached one), m2 over the
+// m1-achievers, m3 over the m2-achievers, each a segment min that every
+// other edge of the row feeds INF, seeded with the identity (INF when an
+// invalid edge leaves the vertex, else INT64_MAX).  x1: an edge off m1;
+// a1 / b1: the least k2 among the m1-achievers and the least erank among
+// those at a1; y1: an m1-achiever above a1.  a1 is kept as its (nz, tot)
+// and divided out only when a comparison needs its value (a second
+// m1-achiever, or a tie with the incumbent's k1): a row that improves
+// k1 never divides.
+struct Fold {
+  int64_t ident, m1, a1, anz, atot, b1;
+  bool aval, seen, x1, any1, y1;
+
+  __device__ explicit Fold(int64_t id)
+      : ident(id), m1(id), a1(kSegMax), anz(0), atot(0), b1(kSegMax),
+        aval(true), seen(false), x1(false), any1(false), y1(false) {}
+
+  __device__ __forceinline__ int64_t a1_value() {
+    if (!aval) {
+      a1 = qul_key(anz, atot);
+      aval = true;
+    }
+    return a1;
+  }
+
+  __device__ __forceinline__ void take(int64_t nz, int64_t tot, int64_t r) {
+    anz = nz;
+    atot = tot;
+    aval = false;
+    b1 = r;
+  }
+
+  __device__ __forceinline__ void push(bool ok, int64_t k1, int64_t nz,
+                                       int64_t tot, int64_t r) {
+    const int64_t c1 = ok ? k1 : kInf;
+    if (c1 < m1) {  // the edges before are off m1 now
+      x1 = seen || !ok;
+      m1 = c1;
+      any1 = ok;
+      y1 = false;
+      if (ok) {
+        take(nz, tot, r);
+      } else {
+        a1 = b1 = kSegMax;
+        aval = true;
+      }
+    } else if (c1 == m1 && ok) {
+      if (!any1) {
+        any1 = true;
+        take(nz, tot, r);
+      } else {
+        const int64_t k2 = qul_key(nz, tot), a = a1_value();
+        if (k2 < a) {
+          y1 = true;
+          take(nz, tot, r);
+          a1 = k2;
+          aval = true;
+        } else if (k2 == a) {
+          b1 = min64(b1, r);
+        } else {
+          y1 = true;
+        }
+      }
+    } else {
+      x1 = true;
+    }
+    seen = true;
+  }
+
+  // m1 and m3; m2 comes from m2_value(), only when needed.
+  __device__ __forceinline__ void mins(int64_t& o1, int64_t& o3) {
+    if (!seen) {
+      o1 = o3 = ident;
+      return;
+    }
+    o1 = m1;
+    if (any1 && a1_is_m2())
+      o3 = min64(min64(ident, x1 || y1 ? kInf : kSegMax), b1);
+    else
+      o3 = min64(ident, kInf);
+  }
+
+  __device__ __forceinline__ int64_t floor2() const {
+    return min64(ident, x1 ? kInf : kSegMax);
+  }
+
+  // a1 == m2 (any1): a1 below INF is below floor2, which is at least INF.
+  __device__ __forceinline__ bool a1_is_m2() {
+    if (!aval && key_below_inf(anz, atot)) return true;
+    return a1_value() <= floor2();
+  }
+
+  __device__ __forceinline__ int64_t m2_value() {
+    if (!seen) return ident;
+    return min64(floor2(), any1 ? a1_value() : kSegMax);
+  }
+};
+
+template <int G>
+__device__ __forceinline__ int64_t group_min(int64_t x) {
+  if constexpr (G > 1)
+    for (int o = 16; o; o >>= 1) x = min64(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+template <int G>
+__device__ __forceinline__ int64_t group_sum(int64_t x) {
+  if constexpr (G > 1)
+    for (int o = 16; o; o >>= 1) x = add64(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+template <int G>
+__device__ __forceinline__ int32_t group_min32(int32_t x) {
+  if constexpr (G > 1) x = __reduce_min_sync(kFull, x);
+  return x;
+}
+
+// Appends u's entry of sweep t (the warp's lane 0 alone); an entry past the
+// pool is dropped, and the cursor past the capacity fails check (d).
+__device__ __forceinline__ void append(const Ctx& c, int32_t u, int32_t t,
+                                       const St& x, int32_t& tail) {
+  const int32_t i = atomicAdd(c.cursor, 1);
+  if (i >= c.cap) return;
+  c.w.hs[i] = x.s;
+  c.w.ha[i] = x.a;
+  c.w.hnz[i] = x.nz;
+  c.w.htot[i] = x.tot;
+  c.w.htime[i] = t;
+  c.w.hnext[i] = -1;
+  if (tail < 0)
+    c.w.head[u] = i;
+  else
+    c.w.hnext[tail] = i;
+  tail = i;
+}
+
+// Row u, by a group of G threads (the warp, or G = 1 in every lane alike
+// for a row of at most one edge, the leader alone writing): its distance
+// history, then its floor and counts from the successors' final values.
+template <int G>
+__device__ __forceinline__ void solve_row(const Ctx& c, int32_t u,
+                                          bool leader) {
+  const int lane = G == 1 ? 0 : (int)(threadIdx.x & 31);
+  const Pass& w = c.w;
+  const int32_t lo = w.start[u], n = w.start[u + 1] - lo;
+  const bool is_dest = u == c.dest;
+  St x = init_state(u, c.dest);
+  int64_t rank = is_dest ? -1 : kInf;  // x's rank
+  int32_t eid = -1, tail = -1;
+  const int64_t ident = w.inv[u] ? kInf : kSegMax;
+  // Before the first sweep after a successor is reached every candidate is
+  // INF and the row keeps its initial state: start there.  The same loop
+  // takes the floor and the walk count from the successors' final values
+  // (the count of min walks waits for the row's final distance).
+  int32_t t0 = kNoTime;
+  int64_t fm = kInf, cts = 0;
+  for (int32_t j = lane; j < n; j += G) {
+    const int32_t k = lo + j, v = w.ev[k];
+    int32_t q = init_state(v, c.dest).s < kInf ? -2 : w.head[v];
+    while (q >= 0 && w.hs[q] >= kInf) q = w.hnext[q];
+    if (q != -1) t0 = min(t0, q == -2 ? 1 : w.htime[q] + 1);
+    w.cp[k] = -1;
+    const int64_t fv = w.fa[v];
+    fm = min64(fm, fv < kInf ? add64(fv, w.ea[k]) : kInf);
+    cts = add64(cts, w.ct[v]);
+  }
+  St one{};  // a one-edge row's candidate at its last evaluation (G = 1)
+  bool one_ok = false;
+  for (int32_t t = group_min32<G>(t0); t <= c.limit;) {
+    Fold f(ident);
+    int32_t nxt = kNoTime;
+    for (int32_t j0 = 0; j0 < n; j0 += G) {
+      const int32_t j = j0 + lane;
+      bool ok = false;
+      int64_t k1 = 0, nz = 0, tot = 0, r = 0;
+      if (j < n) {  // the head's latest entry before sweep t, from the cache
+        const int32_t k = lo + j, v = w.ev[k];
+        int32_t p = w.cp[k], q = p < 0 ? w.head[v] : w.hnext[p];
+        while (q >= 0 && w.htime[q] < t) {
+          p = q;
+          q = w.hnext[q];
+        }
+        nxt = min(nxt, q >= 0 ? w.htime[q] + 1 : kNoTime);
+        const St sv = state_of(c, v, p), cd = cand_of(w, k, sv);
+        ok = sv.s < kInf;
+        one = cd;
+        one_ok = ok;
+        k1 = pack_k1(cd.s, cd.a);
+        nz = cd.nz;
+        tot = cd.tot;
+        r = w.erank[k];
+        w.cp[k] = p;
+        w.cok[k] = ok;
+      }
+      if constexpr (G == 1) {
+        f.push(ok, k1, nz, tot, r);
+      } else {
+        const int m = min(G, n - j0);
+        for (int k = 0; k < m; ++k)
+          f.push(__shfl_sync(kFull, (int)ok, k) != 0,
+                 __shfl_sync(kFull, k1, k), __shfl_sync(kFull, nz, k),
+                 __shfl_sync(kFull, tot, k), __shfl_sync(kFull, r, k));
+      }
+    }
+    nxt = group_min32<G>(nxt);
+    int64_t m1, m3;
+    f.mins(m1, m3);
+    const int64_t cur1 = x.s < kInf ? pack_k1(x.s, x.a) : kInf;
+    bool better = m1 < cur1;
+    if (m1 == cur1) {  // ties on k1: the mapq keys decide
+      const int64_t m2 = f.m2_value(), k2x = qul_key(x.nz, x.tot);
+      better = m2 < k2x || (m2 == k2x && m3 < rank);
+    }
+    if (better) {
+      if constexpr (G > 1) __syncwarp();  // the lanes' cache entries
+      // the lowest edge index among the reached edges whose erank is m3
+      int32_t mine = kNoTime, k = kNoTime;  // and its CSR slot
+      if (G == 1 && n == 1) {  // the fold's own candidate
+        if (one_ok && w.erank[lo] == m3) {
+          mine = w.eidx[lo];
+          k = lo;
+        }
+      } else {
+        for (int32_t j = lane; j < n; j += G) {
+          const int32_t e = w.eidx[lo + j];
+          if (w.cok[lo + j] && w.erank[lo + j] == m3 && e < mine) {
+            mine = e;
+            k = lo + j;
+          }
+        }
+      }
+      const int32_t win = group_min32<G>(mine);
+      k = group_min32<G>(mine == win ? k : kNoTime);
+      if (win != kNoTime) {
+        const St nx = G == 1 && n == 1
+                          ? one
+                          : cand_of(w, k, state_of(c, w.ev[k], w.cp[k]));
+        if (leader && (nx.s != x.s || nx.a != x.a || nx.nz != x.nz ||
+                       nx.tot != x.tot))
+          append(c, u, t, nx, tail);
+        x = nx;
+        rank = w.erank[k];
+        eid = win;
+      }
+      if constexpr (G > 1) __syncwarp();  // read before the next fold writes
+    }
+    t = nxt;
+  }
+
+  // the count of min walks over the successors' final values
+  const int64_t du = x.s < kInf ? pack_k1(x.s, x.a) : kInf;
+  int64_t cms = 0;
+  for (int32_t j = lane; j < n; j += G) {
+    const int32_t k = lo + j, v = w.ev[k];
+    const int32_t lv = w.last[v];
+    const St sv = lv >= 0 ? St{w.hs[lv], w.ha[lv], 0, 0}
+                          : init_state(v, c.dest);
+    if (sv.s < kInf &&
+        pack_k1(add64(sv.s, w.es[k]), add64(sv.a, w.ea[k])) == du)
+      cms = add64(cms, w.cm[v]);
+  }
+  fm = group_min<G>(fm);
+  cts = group_sum<G>(cts);
+  cms = group_sum<G>(cms);
+  if (leader) {
+    const int64_t fa = min64(is_dest ? 0 : kInf, fm);
+    const int32_t ct = (int32_t)min64(add64(is_dest, cts), kCountSat);
+    const int32_t cm = (int32_t)min64(add64(is_dest, cms), kCountSat);
+    w.fa[u] = fa;
+    w.ct[u] = ct;
+    w.cm[u] = cm;
+    w.last[u] = tail;
+    int64_t* o = c.out + u;
+    o[0] = x.s;
+    o[c.BV] = x.a;
+    o[2 * c.BV] = x.nz;
+    o[3 * c.BV] = x.tot;
+    o[4 * c.BV] = fa;
+    o[5 * c.BV] = ct;
+    o[6 * c.BV] = cm;
+    c.out_eid[u] = eid;
+  }
+}
+
+// Sends contig b to the Jacobi branch (flag 1: all of it, 2: the floor and
+// the counts) and counts it.
+__device__ __forceinline__ void to_branch(int* flags, int32_t* jacobi,
+                                          int64_t b, int f) {
+  flags[b] = f;
+  if (jacobi) atomicAdd(jacobi, 1);
+}
+
+__global__ void __launch_bounds__(kPassThreads)
+relax64_pass_kernel(const int32_t* __restrict__ eu_all,
+                    const int32_t* __restrict__ ev_all,
+                    const int64_t* __restrict__ es_all,
+                    const int32_t* __restrict__ ea_all,
+                    const int32_t* __restrict__ enz_all,
+                    const int32_t* __restrict__ etot_all,
+                    const int64_t* __restrict__ erank_all,
+                    const uint8_t* __restrict__ evalid_all,
+                    const int32_t* __restrict__ dest_all,
+                    const int32_t* __restrict__ order_all, int64_t B,
+                    int64_t E, int32_t V, int32_t n_sweeps, int32_t cap,
+                    int* __restrict__ flags, int32_t* __restrict__ jacobi,
+                    int64_t* __restrict__ work, int64_t* __restrict__ out,
+                    int32_t* __restrict__ out_eid) {
+  extern __shared__ int64_t sm[];
+  __shared__ int bad, cursor;
+  const int64_t b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int32_t* eu = eu_all + b * E;
+  const int32_t* ev = ev_all + b * E;
+  const uint8_t* evalid = evalid_all + b * E;
+  const int32_t* order = order_all ? order_all + b * V : nullptr;
+  const int32_t dest = dest_all[b];
+  Ctx c;
+  c.w = pass_at(work ? work + b * (pass_bytes(V, E, cap) / 8) : sm, V, E,
+                cap);
+  c.V = V;
+  c.dest = dest;
+  c.limit = min(n_sweeps, V + 1);  // no change comes after sweep L + 1
+  c.cap = cap;
+  c.cursor = &cursor;
+  c.out = out + b * V;
+  c.BV = B * V;
+  c.out_eid = out_eid + b * V;
+  const Pass& w = c.w;
+
+  // --- the CSR of the valid edges by eu, and check (a) -------------------
+  if (tid == 0) {
+    bad = 0;
+    cursor = 0;
+  }
+  for (int32_t v = tid; v <= V; v += kPassThreads) w.start[v] = 0;
+  for (int32_t v = tid; v < V; v += kPassThreads) {
+    w.pos[v] = -1;
+    w.inv[v] = 0;
+  }
+  __syncthreads();
+  bool ok = true;
+  for (int32_t t = tid; t < V; t += kPassThreads) {
+    const int32_t v = order ? order[t] : t;
+    if (v < 0 || v >= V || atomicExch(&w.pos[v], t) != -1) ok = false;
+  }
+  for (int64_t e = tid; e < E; e += kPassThreads) {
+    const int32_t u = eu[e], v = ev[e];
+    if (!evalid[e]) {
+      if (u >= 0 && u < V) w.inv[u] = 1;  // JAX's segment ops drop the rest
+    } else if (u < 0 || u >= V || v < 0 || v >= V) {
+      ok = false;
+    } else {
+      atomicAdd(&w.start[u], 1);
+    }
+  }
+  if (!ok) bad = 1;
+  __syncthreads();
+  if (bad) {
+    if (tid == 0) to_branch(flags, jacobi, b, 1);
+    return;
+  }
+  if (tid < 32) warp_scan(w.start, V + 1);
+  __syncthreads();
+  for (int32_t v = tid; v < V; v += kPassThreads) w.last[v] = w.start[v];
+  __syncthreads();
+  // dest's row holds no edge: an edge may enter it from any position
+  const bool dest_free =
+      dest >= 0 && dest < V && w.start[dest + 1] == w.start[dest];
+  for (int64_t e = tid; e < E; e += kPassThreads) {
+    if (!evalid[e]) continue;
+    const int32_t u = eu[e], v = ev[e];
+    if (!(v == dest && dest_free) && w.pos[v] <= w.pos[u]) ok = false;
+    const int32_t k = atomicAdd(&w.last[u], 1);
+    w.eidx[k] = (int32_t)e;
+    w.ev[k] = v;
+    w.es[k] = es_all[b * E + e];
+    w.ea[k] = ea_all[b * E + e];
+    w.enz[k] = enz_all[b * E + e];
+    w.etot[k] = etot_all[b * E + e];
+    w.erank[k] = erank_all[b * E + e];
+  }
+  if (!ok) bad = 1;
+  __syncthreads();
+  if (bad) {
+    if (tid == 0) to_branch(flags, jacobi, b, 1);
+    return;
+  }
+  for (int32_t v = tid; v < V; v += kPassThreads) {
+    const bool d = v == dest;
+    w.pos[v] = order ? order[v] : v;  // the rows' order
+    w.head[v] = w.last[v] = -1;
+    w.len[v] = 0;
+    w.fa[v] = d ? 0 : kInf;
+    w.ct[v] = w.cm[v] = d;
+    // a row without edges keeps its initial values and is not visited
+    int64_t* o = c.out + v;
+    o[0] = o[4 * c.BV] = d ? 0 : kInf;
+    o[c.BV] = o[2 * c.BV] = o[3 * c.BV] = 0;
+    o[5 * c.BV] = o[6 * c.BV] = d;
+    c.out_eid[v] = -1;
+  }
+  __syncthreads();
+
+  if (tid >= 32) return;
+
+  // --- L in reverse hint order; checks (c) and (b) ----------------------
+  // Every lane writes the same L[u], so that each reads back its own
+  // writes without a barrier; a chain's successor is the row just done,
+  // whose L stays in a register.
+  int32_t top = 0, rows = 0, pu = -1, pl = 0;
+  for (int32_t t = V - 1; t >= 0; --t) {
+    const int32_t u = w.pos[t], lo = w.start[u], n = w.start[u + 1] - lo;
+    if (n == 0) continue;
+    int32_t l = 0;
+    if (n == 1) {  // every lane alike
+      const int32_t v = w.ev[lo];
+      l = (v == pu ? pl : w.len[v]) + 1;
+    } else {
+      for (int32_t j = lane; j < n; j += 32)
+        l = max(l, w.len[w.ev[lo + j]] + 1);
+      l = __reduce_max_sync(kFull, l);
+    }
+    w.len[u] = l;
+    pu = u;
+    pl = l;
+    top = max(top, l);
+    ++rows;
+  }
+  if (4 * (int64_t)top < 3 * (int64_t)rows) {
+    if (lane == 0) to_branch(flags, jacobi, b, 1);
+    return;
+  }
+
+  // --- the rows in reverse hint order ------------------------------------
+  for (int32_t t = V - 1; t >= 0; --t) {
+    const int32_t u = w.pos[t], n = w.start[u + 1] - w.start[u];
+    if (n == 0) continue;
+    if (n > 1)
+      solve_row<32>(c, u, lane == 0);
+    else
+      solve_row<1>(c, u, lane == 0);
+    __syncwarp();
+  }
+  if (lane == 0 && (cursor > c.cap || top > n_sweeps))
+    to_branch(flags, jacobi, b, cursor > c.cap ? 1 : 2);
+}
+
+// ----------------------------------------------------------------------
+// The Jacobi branch.
 
 // One buffer of the distance loop's state.
 struct State {
@@ -141,11 +789,15 @@ relax64_kernel(const int32_t* __restrict__ eu_all,
                const int64_t* __restrict__ erank_all,
                const uint8_t* __restrict__ evalid_all,
                const int32_t* __restrict__ dest_all, int64_t B, int64_t E,
-               int32_t V, int32_t n_sweeps, int64_t* __restrict__ work,
-               int64_t* __restrict__ out, int32_t* __restrict__ out_eid) {
+               int32_t V, int32_t n_sweeps, const int* __restrict__ flags,
+               int64_t* __restrict__ work, int64_t* __restrict__ out,
+               int32_t* __restrict__ out_eid) {
   extern __shared__ int64_t sm[];
   const int64_t b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int flag = flags[b];
+  if (!flag) return;  // the pass solved this contig
+  const bool dist_done = flag == 2;  // the pass's distance is in out
+  const int tid = threadIdx.x;
   const int32_t* eu = eu_all + b * E;
   const int32_t* ev = ev_all + b * E;
   const int64_t* es = es_all + b * E;
@@ -172,23 +824,7 @@ relax64_kernel(const int32_t* __restrict__ eu_all,
       atomicAdd(&start[u], 1);
   }
   __syncthreads();
-  if (tid < 32) {  // exclusive scan of the V + 1 counts, a chunk a lane
-    const int32_t per = (V + 1 + 31) / 32;
-    const int32_t lo = min(lane * per, V + 1), hi = min(lo + per, V + 1);
-    int32_t sum = 0;
-    for (int32_t i = lo; i < hi; ++i) sum += start[i];
-    int32_t incl = sum;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int32_t y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    int32_t run = incl - sum;
-    for (int32_t i = lo; i < hi; ++i) {
-      const int32_t c = start[i];
-      start[i] = run;
-      run += c;
-    }
-  }
+  if (tid < 32) warp_scan(start, V + 1);
   __syncthreads();
   int32_t* cursor = w.st[1].eid;  // free until the first sweep
   for (int32_t v = tid; v < V; v += kThreads) cursor[v] = start[v];
@@ -198,10 +834,13 @@ relax64_kernel(const int32_t* __restrict__ eu_all,
     if (evalid[e] && u >= 0 && u < V && v >= 0 && v < V)
       w.eidx[atomicAdd(&cursor[u], 1)] = (int32_t)e;
   }
+  const int64_t BV = B * V;
+  int64_t* o = out + b * V;
   for (int32_t v = tid; v < V; v += kThreads) {
     const State s0 = w.st[0];
-    s0.s[v] = v == dest ? 0 : kInf;
-    s0.a[v] = s0.nz[v] = s0.tot[v] = 0;
+    s0.s[v] = dist_done ? o[v] : v == dest ? 0 : kInf;
+    s0.a[v] = dist_done ? o[BV + v] : 0;
+    s0.nz[v] = s0.tot[v] = 0;
     s0.rank[v] = v == dest ? -1 : kInf;
     s0.eid[v] = -1;
   }
@@ -209,7 +848,7 @@ relax64_kernel(const int32_t* __restrict__ eu_all,
 
   // --- distance to dest over (k1, k2, erank) -----------------------------
   int cur = 0;
-  for (int32_t it = 0; it < n_sweeps; ++it) {
+  for (int32_t it = 0; it < (dist_done ? 0 : n_sweeps); ++it) {
     const State o = cur ? w.st[1] : w.st[0];
     const State n = cur ? w.st[0] : w.st[1];
     bool changed = false;
@@ -275,9 +914,7 @@ relax64_kernel(const int32_t* __restrict__ eu_all,
     if (!__syncthreads_or(changed)) break;
   }
   const State d = cur ? w.st[1] : w.st[0];
-  const int64_t BV = B * V;
-  int64_t* o = out + b * V;
-  for (int32_t v = tid; v < V; v += kThreads) {
+  for (int32_t v = tid; v < (dist_done ? 0 : V); v += kThreads) {
     o[v] = d.s[v];
     o[BV + v] = d.a[v];
     o[2 * BV + v] = d.nz[v];
@@ -338,39 +975,68 @@ relax64_kernel(const int32_t* __restrict__ eu_all,
 
 }  // namespace
 
-// int64 words of global workspace the entry point needs per contig (0 when
-// the workspace fits in shared memory).
+// int64 words of global workspace the entry point needs per contig: 0 when
+// the pass's and the Jacobi branch's workspaces both fit in shared memory,
+// else the larger of the two (the launches run one after the other).
 extern "C" int64_t aln_relax64_work_words(int32_t V, int64_t E) {
-  return work_in_smem(V, E) ? 0 : work_bytes(V, E) / 8;
+  if (pass_in_smem(V, E) && work_in_smem(V, E)) return 0;
+  const int64_t p = pass_bytes(V, E, pool_entries(V, E)), j = work_bytes(V, E);
+  return (p > j ? p : j) / 8;
 }
 
 // Launches on `stream` of CUDA device `device`, does not synchronise, and
-// returns cudaGetLastError() after the launch.  `evalid` is (B, E) bytes
-// (torch.bool).  `out` is (7, B, V) int64: d_s, d_a, d_nz, d_tot, floor_a,
-// cnt_tot, cnt_min; `out_eid` (B, V) int32.  `work` holds
-// aln_relax64_work_words(V, E) * B int64 (null when that is 0).
+// returns cudaGetLastError() after the launches.  `evalid` is (B, E) bytes
+// (torch.bool); `order` the (B, V) hint or null (the identity).  `out` is
+// (7, B, V) int64:
+// d_s, d_a, d_nz, d_tot, floor_a, cnt_tot, cnt_min; `out_eid` (B, V)
+// int32.  `flags` holds B int32 zeros: the pass sets flags[b] for each
+// contig the Jacobi branch must solve (1: all of it, 2: the floor and the
+// counts) and adds their number to the one int32 at `jacobi` unless that
+// is null.  `work` holds aln_relax64_work_words(V, E) * B int64 (null when
+// that is 0).
 extern "C" int aln_relax64(int device, const int32_t* eu, const int32_t* ev,
                            const int64_t* es, const int32_t* ea,
                            const int32_t* enz, const int32_t* etot,
                            const int64_t* erank, const uint8_t* evalid,
-                           const int32_t* dest, int64_t B, int64_t E,
-                           int32_t V, int32_t n_sweeps, int64_t* work,
-                           int64_t* out, int32_t* out_eid, void* stream) {
+                           const int32_t* dest, const int32_t* order,
+                           int64_t B, int64_t E, int32_t V, int32_t n_sweeps,
+                           int* flags, int32_t* jacobi,
+                           int64_t* work, int64_t* out, int32_t* out_eid,
+                           void* stream) {
   if (V < 1 || V > kMaxV || E < 1 || E > 0x7fffffff || n_sweeps < 0 ||
-      B < 0 || B > 0x7fffffff || (work == nullptr) != work_in_smem(V, E))
+      B < 0 || B > 0x7fffffff ||
+      (work == nullptr) != (aln_relax64_work_words(V, E) == 0))
     return (int)cudaErrorInvalidValue;
   cudaError_t rc = cudaSetDevice(device);
   if (rc != cudaSuccess) return (int)rc;
   if (B == 0) return (int)cudaGetLastError();
-  const size_t smem = work ? 0 : (size_t)work_bytes(V, E);
-  if (smem > 48 * 1024) {
-    rc = cudaFuncSetAttribute(relax64_kernel,
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool pass_smem = pass_in_smem(V, E);
+  const int64_t cap = pool_entries(V, E);
+  const size_t psmem = pass_smem ? (size_t)pass_bytes(V, E, cap) : 0;
+  int64_t* pwork = pass_smem ? nullptr : work;
+  if (psmem > 48 * 1024) {
+    rc = cudaFuncSetAttribute(relax64_pass_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+                              (int)psmem);
     if (rc != cudaSuccess) return (int)rc;
   }
-  relax64_kernel<<<(unsigned)B, kThreads, smem, (cudaStream_t)stream>>>(
-      eu, ev, es, ea, enz, etot, erank, evalid, dest, B, E, V, n_sweeps, work,
-      out, out_eid);
+  relax64_pass_kernel<<<(unsigned)B, kPassThreads, psmem, st>>>(
+      eu, ev, es, ea, enz, etot, erank, evalid, dest, order, B, E, V,
+      n_sweeps, (int32_t)cap, flags, jacobi, pwork, out, out_eid);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  // the Jacobi branch: every CTA whose contig the pass flagged
+  const bool jac_smem = work_in_smem(V, E);
+  const size_t jsmem = jac_smem ? (size_t)work_bytes(V, E) : 0;
+  if (jsmem > 48 * 1024) {
+    rc = cudaFuncSetAttribute(relax64_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)jsmem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  relax64_kernel<<<(unsigned)B, kThreads, jsmem, st>>>(
+      eu, ev, es, ea, enz, etot, erank, evalid, dest, B, E, V, n_sweeps, flags,
+      jac_smem ? nullptr : work, out, out_eid);
   return (int)cudaGetLastError();
 }

@@ -103,8 +103,8 @@ def _bind(lib) -> None:
     lib.aln_relax32_work_words.argtypes = [i32, i64]
     lib.aln_relax32_work_words.restype = ctypes.c_int64
     lib.aln_dense_sp.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, p, p]
-    lib.aln_relax64.argtypes = [i32, p, p, p, p, p, p, p, p, p, i64, i64, i32,
-                                i32, p, p, p, p]
+    lib.aln_relax64.argtypes = [i32, p, p, p, p, p, p, p, p, p, p, i64, i64,
+                                i32, i32, p, p, p, p, p, p]
     lib.aln_relax64_work_words.argtypes = [i32, i64]
     lib.aln_relax64_work_words.restype = ctypes.c_int64
     for fn in (lib.aln_densify_scatter, lib.aln_densify_wire16,

@@ -3,7 +3,11 @@
 Counterpart of ``alignasm_tpu/ops/relax.py:solve_graph_batch``.  It takes
 CUDA tensors only and raises on anything else; the plain version for CPU
 tensors is ``ops/relax.py:solve_graph_batch_plain``.  ``launches`` counts
-the calls that launched the kernel.
+the calls that launched the kernel; a ``jacobi`` tensor counts the
+contigs that took the kernel's Jacobi branch (a hint that is not a
+topological order, a longest path above ``n_sweeps``, a contig whose
+longest path is under 3/4 of its rows, or a change history that outgrows
+the pool), as in ops/cuda_sweep.py.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from alignasm_tpu_torch.ops import _build
+from alignasm_tpu_torch.ops.cuda_sweep import check_jacobi, check_order, ptr
 
 MAX_V = 8192
 EDGE_DTYPES = (("eu", torch.int32), ("ev", torch.int32), ("es", torch.int64),
@@ -44,22 +49,28 @@ def _check(edges, src, dest, V: int):
 
 
 def relax64(eu, ev, es, ea, enz, etot, erank, evalid, src, dest, V: int,
-            n_sweeps: int):
+            n_sweeps: int, order=None, jacobi=None):
     """(B, E) int32 ``eu, ev, ea, enz, etot``, int64 ``es, erank``, bool
-    ``evalid``; (B,) int32 ``src`` (unused, as in JAX) and ``dest`` -> dict
-    of (B, V) int64 ``d_s, d_a, d_nz, d_tot, floor_a, cnt_tot, cnt_min``
-    and int32 ``d_eid``, as ``solve_graph_batch_plain`` returns them."""
+    ``evalid``; (B,) int32 ``src`` (unused, as in JAX) and ``dest``,
+    optional (B, V) int32 hint ``order`` (default: the identity) and (1,)
+    int32 branch count ``jacobi`` -> dict of (B, V) int64 ``d_s, d_a,
+    d_nz, d_tot, floor_a, cnt_tot, cnt_min`` and int32 ``d_eid``, as
+    ``solve_graph_batch_plain`` returns them."""
     edges = (eu, ev, es, ea, enz, etot, erank, evalid)
     _check(edges, src, dest, V)
     B, E = eu.shape
+    check_order(order, B, V)
+    check_jacobi(jacobi)
     lib = _build.load_library()
     out = torch.empty((7, B, V), dtype=torch.int64, device=eu.device)
     eid = torch.empty((B, V), dtype=torch.int32, device=eu.device)
+    flags = torch.zeros(B, dtype=torch.int32, device=eu.device)
     work = torch.empty(lib.aln_relax64_work_words(V, E) * B,
                        dtype=torch.int64, device=eu.device)
     dev, stream = _build.stream_of(eu)
     rc = lib.aln_relax64(dev, *(t.data_ptr() for t in edges), dest.data_ptr(),
-                         B, E, V, int(n_sweeps),
+                         ptr(order), B, E, V, int(n_sweeps), flags.data_ptr(),
+                         ptr(jacobi),
                          work.data_ptr() if work.numel() else None,
                          out.data_ptr(), eid.data_ptr(), stream)
     _build.check(rc, "relax64")

@@ -119,11 +119,14 @@ def solve_graph_batch_plain(eu, ev, es, ea, enz, etot, erank, evalid, src,
 
 
 def solve_graph_batch(eu, ev, es, ea, enz, etot, erank, evalid, src, dest,
-                      V: int, n_sweeps=None):
+                      V: int, n_sweeps=None, order=None, jacobi=None):
     """The int64 relaxation of a bucket (counterpart of
     alignasm_tpu/ops/relax.py:73) -> the dict of ``solve_graph_batch_plain``.
     CPU tensors take the plain path, CUDA tensors the kernel (which takes
-    ``es`` and ``erank`` int64, the other edge arrays int32)."""
+    ``es`` and ``erank`` int64, the other edge arrays int32), with
+    ``order`` (B, V) int32 its hint (default: the identity; the result
+    does not depend on it) and ``jacobi`` its branch count, as in
+    ``ops/relax32.py:sp_batch32``."""
     from alignasm_tpu_torch.ops.dense import _on_cuda
 
     if _on_cuda(eu):
@@ -131,6 +134,7 @@ def solve_graph_batch(eu, ev, es, ea, enz, etot, erank, evalid, src, dest,
 
         return cuda_relax64.relax64(eu, ev, es, ea, enz, etot, erank, evalid,
                                     src, dest, V,
-                                    V if n_sweeps is None else n_sweeps)
+                                    V if n_sweeps is None else n_sweeps,
+                                    order, jacobi)
     return solve_graph_batch_plain(eu, ev, es, ea, enz, etot, erank, evalid,
                                    src, dest, V, n_sweeps)

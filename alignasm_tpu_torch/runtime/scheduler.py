@@ -488,8 +488,8 @@ def topo_hint(pg, V: int):
     kahn_pos[v].  Vertices that are no edge's target come first (nothing
     points into them), then the targets by that position descending, then
     the padding vertices: every edge goes from an earlier position to a
-    later one.  It is the sweep kernels' hint (csrc/topo_pass.cuh), which
-    they check before they trust it."""
+    later one.  It is the solve kernels' hint (csrc/topo_pass.cuh,
+    csrc/relax64.cu), which they check before they trust it."""
     from alignasm_tpu_torch.engine.device import _RANK_SHIFT
 
     n = pg.g.n_vertices
@@ -511,8 +511,8 @@ def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
     matrices) when every contig fits int32 and V <= ``dense_max_v`` and
     no cell holds two edges, else "sparse32" or "sparse64" ((B, E) edge
     lists).  Returns dicts of chunk, B, V, n_sweeps, kind and the numpy
-    ``args`` of the bucket's solve; a dense or sparse32 bucket's args end
-    with its (B, V) ``topo_hint`` rows, the kernels' ``order``."""
+    ``args`` of the bucket's solve, which end with its (B, V)
+    ``topo_hint`` rows, the kernels' ``order``."""
     from alignasm_tpu_torch.ops.dense import pack_dense_bucket
 
     packed = sorted(packed, key=lambda t: (t[1].g.n_vertices, len(t[1].eu)))
@@ -525,8 +525,7 @@ def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
         n_sweeps = _next_pow2(max(pg.g.n for _i, pg in chunk) + 2)
         use32 = all(_fits32(pg) for _i, pg in chunk)
         bucket = dict(chunk=chunk, B=B, V=V, n_sweeps=n_sweeps)
-        order = np.stack([topo_hint(pg, V) for _i, pg in chunk]) \
-            if use32 else None
+        order = np.stack([topo_hint(pg, V) for _i, pg in chunk])
         if use32 and V <= cfg.dense_max_v:
             dense = pack_dense_bucket(chunk, V)
             if dense is not None:
@@ -557,7 +556,8 @@ def python_buckets(packed, cfg: AlignasmConfig, batch_size: int = 256):
             enz = pad([pg.enz for pg in pgs], np.int32)
             etot = pad([pg.etot for pg in pgs], np.int32)
             erank = pad([pg.erank for pg in pgs], idt)
-            args = (eu, ev, es, ea, enz, etot, erank, evalid, srcs, dests)
+            args = (eu, ev, es, ea, enz, etot, erank, evalid, srcs, dests,
+                    order)
         buckets.append(dict(bucket, kind="sparse32" if use32 else "sparse64",
                             args=args))
     return buckets
@@ -567,9 +567,9 @@ def launch_python_bucket(bucket, dev, jacobi=None):
     """Move one bucket's arrays to ``dev`` and start its solve
     (asynchronous on CUDA).  Returns the (B, 5, V) int32 tensor of a
     dense or sparse32 bucket, or the dict of (B, V) tensors of a sparse64
-    one.  ``jacobi``, one int32 on ``dev``, gains the count of a dense or
-    sparse32 bucket's contigs that took the kernel's Jacobi branch (the
-    plain versions add nothing)."""
+    one.  ``jacobi``, one int32 on ``dev``, gains the count of the
+    bucket's contigs that took the kernel's Jacobi branch (the plain
+    versions add nothing)."""
     from alignasm_tpu_torch.ops.dense import dense_solve_batch
     from alignasm_tpu_torch.ops.relax import solve_graph_batch
     from alignasm_tpu_torch.ops.relax32 import sp_batch32
@@ -577,9 +577,10 @@ def launch_python_bucket(bucket, dev, jacobi=None):
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in bucket["args"]]
     kind, ns = bucket["kind"], bucket["n_sweeps"]
-    if kind == "sparse64":
-        return solve_graph_batch(*args, V=bucket["V"], n_sweeps=ns)
     *args, order = args
+    if kind == "sparse64":
+        return solve_graph_batch(*args, V=bucket["V"], n_sweeps=ns,
+                                 order=order, jacobi=jacobi)
     if kind == "dense":
         return dense_solve_batch(*args, n_sweeps=ns, order=order,
                                  jacobi=jacobi)

@@ -31,8 +31,12 @@ Run from the root of a checkout, on a machine with a CUDA device:
    rows.  The int64 relaxation kernel (``relax64``) on every int64
    bucket of querysparse2000 (long2000 made query-sparse,
    ``query_sparse``: every contig's path sums may pass int32, so the
-   Python plane makes eight int64 buckets of V 64-256) and on a seeded
-   V = 512 bucket whose path sums pass 2^31, against
+   Python plane makes eight int64 buckets of V 64-256; every contig a
+   chain, no Jacobi-branch contig) with each bucket's hint and reversed
+   (every contig in the branch), and on a seeded V = 512 bucket whose
+   path sums pass 2^31 with the identity hint (DAGs whose longest path
+   is under 3/4 of their rows: check (c) sends each to the kernel's
+   Jacobi branch, the count held to the host's), against
    ``solve_graph_batch_plain`` on the same CUDA tensors.  Times both
    with CUDA events after a warm-up.
 3. End to end, each path with the launch counts set to 0 just before it
@@ -44,10 +48,11 @@ Run from the root of a checkout, on a machine with a CUDA device:
    read_paf(long2000), cfg)`` on the card, its files byte-compared with
    ``native.run``'s and its counts held to the JAX Python plane's (and
    no Jacobi-branch contig); then the Python plane on querysparse2000 the
-   same way (every bucket int64: ``relax64`` once a bucket; none of its
-   contigs is device-eligible on the native plane, so it runs no native
-   phase).  Every kernel of a path must have launched in its run (the
-   Python plane's counts are the two runs' sums).
+   same way (every bucket int64: ``relax64`` once a bucket, no
+   Jacobi-branch contig; none of its contigs is device-eligible on the
+   native plane, so it runs no native phase).  Every kernel of a path
+   must have launched in its run (the Python plane's counts are the two
+   runs' sums).
 4. Profile: the native plane once more on each corpus under
    torch.profiler: the device's busy time and share, and the scan's and
    the blocked solve's kernel time.
@@ -101,7 +106,7 @@ PYTHON_PLANE = dict(device=1952, fallback=34, singleton=14, oversize=0,
 # packed contig fails fits32, so every bucket is int64, and the port's
 # int64 buckets there: (V, B) each, and their valid edges.
 QUERYSPARSE = dict(device=1986, fallback=0, singleton=14, oversize=0,
-                   dense_buckets=0, int32_buckets=0)
+                   dense_buckets=0, int32_buckets=0, jacobi=0)
 QUERYSPARSE_BUCKETS = ([(64, 256), (128, 256), (128, 256), (256, 256),
                         (256, 256), (256, 256), (256, 256), (256, 194)],
                        246_112)
@@ -631,11 +636,49 @@ def query_sparse(text, shift=4_000_000, grow=800_000_000):
     return "\n".join(out) + "\n"
 
 
-def check_relax64(what, host_args, V, ns, device):
+def branch64(host_args, order):
+    """The contigs of an int64 bucket that csrc/relax64.cu's checks send
+    to its Jacobi branch, for the hint ``order`` and for it reversed:
+    check (a) fails under a hint when a valid edge (u, v) does not climb,
+    other than an edge into dest while dest's row holds no edge; check
+    (c) when the longest path is under 3/4 of the rows (the vertices
+    with a valid out-edge).  Returns the two counts."""
+    import numpy as np
+
+    eu, ev, evalid, dest = (host_args[i] for i in (0, 1, 7, 9))
+    B, V = order.shape
+    fwd = rev = 0
+    for b in range(B):
+        u, v = eu[b][evalid[b]], ev[b][evalid[b]]
+        L = np.zeros(V, np.int64)
+        while True:
+            new = L.copy()
+            np.maximum.at(new, u, L[v] + 1)
+            if np.array_equal(new, L):
+                break
+            L = new
+        wide = 4 * int(L.max()) < 3 * len(np.unique(u))
+        into_free = (v == dest[b]) & (not (u == dest[b]).any())
+
+        def misses(o):
+            pos = np.empty(V, np.int64)
+            pos[o] = np.arange(V)
+            return bool(((pos[v] <= pos[u]) & ~into_free).any())
+
+        fwd += wide or misses(order[b])
+        rev += wide or misses(order[b, ::-1])
+    return fwd, rev
+
+
+def check_relax64(what, host_args, V, ns, device, order=None):
     """The int64 relaxation kernel against its plain version on the same
-    CUDA tensors (every output and dtype equal).  Returns (kernel ms,
-    plain ms, bytes, operations, the plain result): the bytes of every
-    input and output once, and SP64_OPS per valid edge."""
+    CUDA tensors (every output and dtype equal), with the hint ``order``
+    (None: the identity) and with it reversed, each time with as many
+    Jacobi-branch contigs as ``branch64`` counts.  Returns (kernel ms,
+    the reversed hint's ms, plain ms, bytes, operations, the hint's
+    Jacobi-branch contigs, the plain result): the bytes of every input
+    and output once (the hint is the kernel's aid, not an input of the
+    function), and SP64_OPS per valid edge."""
     import numpy as np
     import torch
 
@@ -643,26 +686,40 @@ def check_relax64(what, host_args, V, ns, device):
 
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in host_args]
-    got = cuda_relax64.relax64(*args, V, ns)
+    B = args[0].shape[0]
+    if order is None:
+        order = np.tile(np.arange(V, dtype=np.int32), (B, 1))
+    hint = torch.from_numpy(np.ascontiguousarray(order)).to(device)
+    flip = hint.flip(1).contiguous()
+    n_fwd, n_rev = branch64(host_args, order)
     want = relax.solve_graph_batch_plain(*args, V=V, n_sweeps=ns)
-    if list(got) != list(want):
-        fail(f"{what}: relax64 returns {list(got)}, plain {list(want)}")
-    for k, t in want.items():
-        if got[k].dtype != t.dtype or not torch.equal(got[k], t):
-            fail(f"{what}: relax64 disagrees with plain in {k}")
-    ms = cuda_ms(lambda: cuda_relax64.relax64(*args, V, ns), 10)
+    for o, n_want, tag in ((hint, n_fwd, "hint"), (flip, n_rev, "reversed")):
+        jacobi = jacobi_count()
+        got = cuda_relax64.relax64(*args, V, ns, o, jacobi)
+        if list(got) != list(want):
+            fail(f"{what} {tag}: relax64 returns {list(got)}, plain "
+                 f"{list(want)}")
+        for k, t in want.items():
+            if got[k].dtype != t.dtype or not torch.equal(got[k], t):
+                fail(f"{what} {tag}: relax64 disagrees with plain in {k}")
+        if int(jacobi) != n_want:
+            fail(f"{what} {tag}: {int(jacobi)} contigs took the Jacobi "
+                 f"branch, expected {n_want}")
+    ms = cuda_ms(lambda: cuda_relax64.relax64(*args, V, ns, hint), 10)
+    rev = cuda_ms(lambda: cuda_relax64.relax64(*args, V, ns, flip), 3)
     plain = cuda_ms(
         lambda: relax.solve_graph_batch_plain(*args, V=V, n_sweeps=ns), 1)
-    return (ms, plain, nbytes_of(*args) + nbytes_of(*got.values()),
-            int(args[7].sum()) * SP64_OPS, want)
+    return (ms, rev, plain, nbytes_of(*args) + nbytes_of(*want.values()),
+            int(args[7].sum()) * SP64_OPS, n_fwd, want)
 
 
 def phase_relax64_kernels(paf, cfg, device, results):
     """The int64 relaxation kernel against its plain version on the card:
     on every int64 bucket of ``paf`` (querysparse2000), packed and
-    bucketed as solve_dataset_torch's Python plane does (summed into the
-    kernels line), and on a seeded V = 512 bucket whose path sums pass
-    2^31 (printed)."""
+    bucketed as solve_dataset_torch's Python plane does, with the bucket's
+    hint and reversed (summed into the kernels line; no contig may take
+    the Jacobi branch under the hint), and on a seeded V = 512 bucket
+    whose path sums pass 2^31, with the identity hint (printed)."""
     from alignasm_tpu_torch.io.paf import read_paf
     from alignasm_tpu_torch.runtime import scheduler as tsched
 
@@ -683,21 +740,27 @@ def phase_relax64_kernels(paf, cfg, device, results):
     for bk in buckets:
         V, B, ns = bk["V"], bk["B"], bk["n_sweeps"]
         what = f"querysparse2000 python V={V} B={B} relax64"
-        ms, plain, nbytes, nops, _want = check_relax64(what, bk["args"], V,
-                                                       ns, device)
+        *args, order = bk["args"]
+        ms, rev, plain, nbytes, nops, n_jac, _want = check_relax64(
+            what, args, V, ns, device, order)
+        if n_jac:
+            fail(f"{what}: {n_jac} contigs sent to the Jacobi branch under "
+                 f"the hint, expected none")
         bound = record(results, "relax64", 0, ms, plain, nbytes, nops)
         print(f"kernels querysparse2000 python V={V} B={B} n_sweeps={ns} "
-              f"sparse64: bit-equal; relax64 {ms:.4f} ms/bucket (plain "
-              f"{plain:.4f}; {bound}; {int(bk['args'][7].sum())} edges)",
+              f"sparse64: bit-equal, jacobi 0; relax64 {ms:.4f} ms/bucket "
+              f"(plain {plain:.4f}; {bound}; {int(args[7].sum())} edges; "
+              f"Jacobi branch {rev:.4f} ms, reversed hint, {B} contigs)",
               flush=True)
     V = 512
-    ms, plain, nbytes, nops, want = check_relax64(
+    ms, rev, plain, nbytes, nops, n_jac, want = check_relax64(
         f"sparse64 seeded V={V}", sparse64_bucket(64, V=V), V, V, device)
     if int(want["d_s"][:, 0].min()) < 2**31:
         fail("sparse64: the seeded bucket's path sums do not pass int32")
     print(f"sparse64 relax64 seeded V={V} B=256 {nops // SP64_OPS} edges: "
-          f"bit-equal; {ms:.4f} ms (plain {plain:.4f}); bound "
-          f"{1e3 * nbytes / MEM_BYTES_PER_S:.4f} ms by bytes, "
+          f"bit-equal, jacobi {n_jac} (check (c)); relax64 {ms:.4f} ms "
+          f"(plain {plain:.4f}; Jacobi branch {rev:.4f} ms, reversed "
+          f"hint); bound {1e3 * nbytes / MEM_BYTES_PER_S:.4f} ms by bytes, "
           f"{1e3 * nops / OPS_PER_S:.4f} by operations", flush=True)
 
 

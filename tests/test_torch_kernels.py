@@ -387,18 +387,19 @@ def test_dense_sp_kernel_matches_plain_on_the_card(cuda_device, V, density,
         assert torch.equal(got[k], want[k]), k
 
 
-def _shuffled_dag_edges(B, V, seed):
+def _shuffled_dag_edges(B, V, seed, chain=3):
     """Random DAGs numbered in a shuffled order, as edge lists: position i
     links to up to three later positions within 64, position V-1 is dest
     (a sink) and takes an edge from a fifth of the others, and a chain
-    0 -> 1 -> 2 -> 3 makes every longest path at least 3 edges (V >= 4).
-    Returns [(u, v, ws, wa)] in the shuffled numbering, the dests and the
-    hints (orders[b, t] = the vertex at position t)."""
+    0 -> 1 -> ... -> ``chain`` makes every longest path at least that
+    many edges (V > chain).  Returns [(u, v, ws, wa)] in the shuffled
+    numbering, the dests and the hints (orders[b, t] = the vertex at
+    position t)."""
     rng = np.random.default_rng(seed)
     edges, dests = [], np.empty(B, np.int32)
     orders = np.empty((B, V), np.int32)
     for b in range(B):
-        pairs = {(i, i + 1) for i in range(min(3, V - 1))}
+        pairs = {(i, i + 1) for i in range(min(chain, V - 1))}
         for i in range(V - 1):
             for j in rng.integers(i + 1, min(V, i + 65), rng.integers(0, 4)):
                 pairs.add((i, int(j)))
@@ -546,6 +547,36 @@ def _int64_edges(B, V, seed, deg, nv=None, ties=False):
             np.full(B, n - 1, np.int32)]
 
 
+def _ladder_edges(B, n):
+    """Contigs whose distances improve at almost every sweep, so that
+    their change histories outgrow the int64 pass's history pool (check
+    (d)): a chain 0 -> 1 -> ... -> n-1 = dest and a direct edge
+    i -> dest from every i, three times the chain's cost, so each vertex
+    finds a cheaper path one sweep after another (about n^2 / 2 changes).
+    Numbered topologically; the edges shuffled and padded as
+    ``_int64_edges``."""
+    rng = np.random.default_rng(n)
+    u = np.concatenate([np.arange(n - 1), np.arange(n - 2)])
+    v = np.concatenate([np.arange(1, n), np.full(n - 2, n - 1)])
+    es = np.concatenate([np.full(n - 1, 2**25),
+                         3 * 2**25 * (n - 1 - u[n - 1:])])
+    k = len(u)
+    E = 1 << k.bit_length()
+    i32 = [np.zeros((B, E), np.int32) for _ in range(5)]  # eu ev ea enz etot
+    es_b, erank = np.zeros((B, E), np.int64), np.zeros((B, E), np.int64)
+    evalid = np.zeros((B, E), bool)
+    for b in range(B):
+        p = rng.permutation(k)
+        for arr, val in zip(i32, (u, v, np.zeros(k), np.ones(k),
+                                  np.full(k, 2))):
+            arr[b, :k] = val[p]
+        es_b[b, :k], erank[b, :k] = es[p], rng.permutation(k)
+        evalid[b, :k] = True
+    eu, ev, ea, enz, etot = i32
+    return [eu, ev, es_b, ea, enz, etot, erank, evalid,
+            np.zeros(B, np.int32), np.full(B, n - 1, np.int32)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("V,seed,deg,nv,ties,n_sweeps", [
     (64, 1, 2, None, False, None), (64, 2, 3, 40, True, 5),
@@ -579,3 +610,78 @@ def test_relax64_kernel_matches_plain_on_the_card(cuda_device, V, seed, deg,
     again = relax.solve_graph_batch(*args, V=V, n_sweeps=ns)
     assert cuda_relax64.relax64.launches == n + 1
     assert all(torch.equal(again[k], want[k]) for k in want)
+
+
+def _shallow64(u, v, V):
+    """Whether the int64 relaxation's pass leaves a DAG to its Jacobi
+    branch for its shape (check (c)): its longest path under 3/4 of its
+    rows (the vertices with an out-edge)."""
+    L = np.zeros(V, np.int64)
+    for _ in range(V):
+        new = L.copy()
+        np.maximum.at(new, u, L[v] + 1)
+        if np.array_equal(new, L):
+            break
+        L = new
+    return 4 * int(L.max()) < 3 * len(np.unique(u))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,case", [
+    (V, case) for V in (8, 256, 1024)
+    for case in ("hint", "reversed", "short", "overflow", "shallow")
+    if (V, case) != (8, "overflow")])  # 8 vertices change < 28 times
+def test_relax64_kernel_pass_and_jacobi_branch_on_the_card(cuda_device, V,
+                                                           case):
+    """The int64 relaxation's checked pass bit-equals its plain version on
+    shuffled-numbering DAGs with int64 scores: on deep DAGs (a chain
+    through every position) with a valid hint no contig takes the Jacobi
+    branch; with a reversed hint (check (a)), a short n_sweeps (check (b):
+    the distance from the pass, floor and counts from the branch) or a
+    history that outgrows the pool (check (d), ``_ladder_edges``) every
+    contig does; on wide DAGs (check (c)) those whose longest path is under
+    3/4 of their rows do.  V = 1024 holds the pass's workspace in global
+    memory."""
+    from alignasm_tpu_torch.ops import cuda_relax64, relax
+
+    B = 5
+    if case == "overflow":
+        # ~6,000 changes: more than any pool holds (227 KB at 40 bytes an
+        # entry in shared memory, 4V in the global workspace at V = 1024)
+        host = _ladder_edges(B, 110)
+        orders, ns = np.tile(np.arange(V, dtype=np.int32), (B, 1)), V
+        want_j = B
+    else:
+        edges, dests, orders = _shuffled_dag_edges(
+            B, V, 60 + V, 3 if case == "shallow" else V - 1)
+        edges, orders, ns = _pass_case(edges, dests, orders,
+                                       "hint" if case == "shallow" else case)
+        want_j = sum(_shallow64(u, v, V) for u, v, _s, _a in edges) \
+            if case == "shallow" else (0 if case == "hint" else B)
+        if case == "shallow" and V > 8:
+            assert want_j > 0
+        E = 1 << max(len(u) for u, _v, _s, _a in edges).bit_length()
+        i32 = [np.zeros((B, E), np.int32) for _ in range(5)]
+        es, erank = np.zeros((B, E), np.int64), np.zeros((B, E), np.int64)
+        evalid = np.zeros((B, E), bool)
+        rng = np.random.default_rng(V)
+        for b, (u, v, ws, wa) in enumerate(edges):
+            k = len(u)
+            nz = rng.integers(0, 60, k)
+            for arr, val in zip(i32, (u, v, wa, nz,
+                                      nz + rng.integers(1, 60, k))):
+                arr[b, :k] = val
+            es[b, :k] = 2**25 + (ws.astype(np.int64) << 12)
+            erank[b, :k] = rng.permutation(k)
+            evalid[b, :k] = True
+        host = [i32[0], i32[1], es, i32[2], i32[3], i32[4], erank, evalid,
+                np.zeros(B, np.int32), dests]
+    args = _to(cuda_device, *host)
+    order = _to(cuda_device, orders)[0]
+    jacobi = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = cuda_relax64.relax64(*args, V, ns, order, jacobi)
+    assert int(jacobi) == want_j
+    want = relax.solve_graph_batch_plain(*args, V=V, n_sweeps=ns)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k

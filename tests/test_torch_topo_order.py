@@ -69,15 +69,14 @@ def test_topo_hint_orders_every_contig_within_n_sweeps(name,
                                                        tmp_path_factory):
     """Every contig of every bucket: the hint is a permutation of 0..V-1
     with the padding vertices last, every edge climbs in position, and the
-    longest path is at most the bucket's n_sweeps; a dense or int32 bucket
-    carries the hints as the last of its args."""
+    longest path is at most the bucket's n_sweeps; every bucket carries
+    the hints as the last of its args."""
     buckets = _buckets(name, tmp_path_factory)
     kinds = set()
     for bk in buckets:
         kinds.add(bk["kind"])
         V, ns = bk["V"], bk["n_sweeps"]
-        if bk["kind"] != "sparse64":
-            assert bk["args"][-1].shape == (bk["B"], V)
+        assert bk["args"][-1].shape == (bk["B"], V)
         for b, (_i, pg) in enumerate(bk["chunk"]):
             order = scheduler.topo_hint(pg, V)
             assert order.dtype == np.int32
@@ -88,8 +87,7 @@ def test_topo_hint_orders_every_contig_within_n_sweeps(name,
             pos[order] = np.arange(V)
             assert (pos[pg.ev] > pos[pg.eu]).all()
             assert _longest_path(n, pg.eu, pg.ev, pos) <= ns
-            if bk["kind"] != "sparse64":
-                np.testing.assert_array_equal(bk["args"][-1][b], order)
+            np.testing.assert_array_equal(bk["args"][-1][b], order)
     if name == "long30":
         assert {"dense", "sparse32"} <= kinds
 
