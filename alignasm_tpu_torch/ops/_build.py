@@ -91,7 +91,10 @@ def _compile(out: pathlib.Path) -> None:
 def _bind(lib) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.aln_densify_scatter.argtypes = [i32, p, p, i64, i64, p, p]
-    lib.aln_densify_wire16.argtypes = [i32, p, p, p, i32, i64, i64, i64, p, p]
+    lib.aln_densify_wire16.argtypes = [i32, p, p, p, i32, p, i64, i64, i64,
+                                       p, p, p, p]
+    lib.aln_densify_wire16_scratch_words.argtypes = [i64, i64]
+    lib.aln_densify_wire16_scratch_words.restype = ctypes.c_int64
     lib.aln_topo_scan_nxt8.argtypes = [i32, p, i64, i32, p, p]
     lib.aln_blocked_dp_nxt16.argtypes = [i32, p, i64, i32, i32, p, p, p]
     lib.aln_blocked_dp_scratch_words.argtypes = []
@@ -102,7 +105,10 @@ def _bind(lib) -> None:
                                 p, p, p, p, p]
     lib.aln_relax32_work_words.argtypes = [i32, i64]
     lib.aln_relax32_work_words.restype = ctypes.c_int64
-    lib.aln_dense_sp.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, p, p]
+    lib.aln_dense_sp.argtypes = [i32, p, p, p, p, p, p, i64, i32, i32, p, p,
+                                 p, p, p]
+    lib.aln_dense_sp_work_words.argtypes = [i32]
+    lib.aln_dense_sp_work_words.restype = ctypes.c_int64
     lib.aln_relax64.argtypes = [i32, p, p, p, p, p, p, p, p, p, p, i64, i64,
                                 i32, i32, p, p, p, p, p, p]
     lib.aln_relax64_work_words.argtypes = [i32, i64]

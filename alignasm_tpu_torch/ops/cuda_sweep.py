@@ -37,14 +37,14 @@ def check_order(order, B: int, V: int):
                          f"{tuple(order.shape)}")
 
 
-def check_jacobi(jacobi):
-    """The branch count's check: None, or a one-element int32 CUDA
+def check_jacobi(jacobi, name: str = "jacobi"):
+    """A branch count's check: None, or a one-element int32 CUDA
     tensor."""
     if jacobi is None:
         return
-    _build.require(jacobi, "jacobi", torch.int32, 1)
+    _build.require(jacobi, name, torch.int32, 1)
     if jacobi.numel() != 1:
-        raise ValueError(f"jacobi must hold one int32, got "
+        raise ValueError(f"{name} must hold one int32, got "
                          f"{tuple(jacobi.shape)}")
 
 

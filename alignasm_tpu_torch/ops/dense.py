@@ -48,7 +48,8 @@ def _scatter(flat, idx, val, trash):
 def densify_wire_ragged(wire, B: int, V: int):
     """Plain form of ``_densify_wire_ragged`` (alignasm_tpu/ops/dense.py:491):
     one (2, capN) int32 stream of (global flat cell, value) pairs ->
-    (B, V+1, V) int32 slabs.  Only trash-cell indices repeat."""
+    (B, V+1, V) int32 slabs.  On this wire only the trash cell repeats
+    (the exporter trash-fills a rejected contig's span)."""
     M = V * (V + 1)
     flat = torch.full((B * M + 1,), INF32, dtype=torch.int32, device=wire.device)
     _scatter(flat, wire[0], wire[1], B * M)
@@ -66,7 +67,9 @@ def densify_wire16(deltas, vidx, table, seeds, n_real: int, B: int, V: int):
     """Plain form of ``_densify_wire16`` (alignasm_tpu/ops/dense.py:532):
     cell i = cumsum(deltas)[i], value i = table[vidx[i]], entries at or
     past ``n_real`` go to the trash cell, then the (2, S) ``seeds`` pairs
-    land on top.  ``deltas``/``vidx`` are raw u16 bits in int16 tensors."""
+    land on top.  ``deltas``/``vidx`` are raw u16 bits in int16 tensors.
+    Cells repeat: the exporter's rejected-contig filler is zero deltas that
+    repeat a cell with the same value (a serial scatter keeps the last)."""
     M = V * (V + 1)
     trash = B * M
     pos = wire16_positions(deltas)

@@ -78,15 +78,17 @@ def dense_sp_plain(ws, wa, wnz, wtot, wrank, dest, n_sweeps: int):
     return {k: v[:, None, :] for k, v in zip(DSP_ROWS, state)}
 
 
-def dense_sp(ws, wa, wnz, wtot, wrank, dest, n_sweeps: int):
+def dense_sp(ws, wa, wnz, wtot, wrank, dest, n_sweeps: int, jacobi=None):
     """Batched dense shortest-path fixed point (counterpart of
     alignasm_tpu/ops/pallas_relax.py:147): ws..wrank (B, V, V) int32,
     dest (B, 1, V) int32 -> dict of six (B, 1, V) int32 rows.  CPU
-    tensors take the plain path, CUDA tensors the kernel."""
+    tensors take the plain path, CUDA tensors the kernel (which adds its
+    Jacobi-branch contigs to ``jacobi`` when given)."""
     if _on_cuda(ws):
         from alignasm_tpu_torch.ops import cuda_dense_sp
 
-        return cuda_dense_sp.dense_sp(ws, wa, wnz, wtot, wrank, dest, n_sweeps)
+        return cuda_dense_sp.dense_sp(ws, wa, wnz, wtot, wrank, dest,
+                                      n_sweeps, jacobi)
     return dense_sp_plain(ws, wa, wnz, wtot, wrank, dest, n_sweeps)
 
 

@@ -12,7 +12,9 @@ Run from the root of a checkout, on a machine with a CUDA device:
    the same CUDA tensors and requires bit-equal results (every value is
    an integer or an exactly rounded f32 key).  Native plane: exports
    every device bucket of the three corpora; the densify kernels on
-   every bucket, the scan on V <= 256, the blocked solve on V > 256 at
+   every bucket (the 16-bit one must write its slabs from tiles, not its
+   scatter branch, and a bare torch.full of the same slab buffer is
+   timed beside it: the card's write floor), the scan on V <= 256, the blocked solve on V > 256 at
    every block size it takes (Bk = 32, 64, 128: the A/B behind the
    scheduler's Bk, printed as a per-Bk line), its rows also held to the
    plain scan's int16 rows, and the sweep solve's slab entry
@@ -24,8 +26,10 @@ Run from the root of a checkout, on a machine with a CUDA device:
    on every int32 bucket, each with the bucket's topological hint
    (``scheduler.topo_hint``; no contig may take a kernel's Jacobi
    branch), and the dense shortest-path kernel (a library entry, no
-   engine path calls it) on the dense buckets' contigs, its s / a rows
-   held to the sweep solve's d_s / d_a.  Each sweep-solve and relaxation
+   engine path calls it) on the dense buckets' contigs with no contig
+   in its Jacobi branch, its s / a rows held to the sweep solve's d_s /
+   d_a, then on the same contigs each given a cycle (every one in the
+   branch), held to the plain version.  Each sweep-solve and relaxation
    bucket runs once more with its hint reversed, so that check (a) sends
    its contigs to the kernel's Jacobi branch, held to the same plain
    rows.  The int64 relaxation kernel (``relax64``) on every int64
@@ -431,6 +435,25 @@ def check_slab_sweep(name, V, padB, slabs, results):
             f"jacobi 0; {branch})")
 
 
+def check_wire16_tiles(name, V, padB, args, slabs):
+    """The 16-bit densify kernel on an exporter wire takes its tiles, not
+    its scatter branch; returns the time of a bare fill of the same slab
+    buffer (torch.full), the card's write floor beside the kernel."""
+    import torch
+
+    from alignasm_tpu_torch.ops import cuda_densify, dense
+
+    count = jacobi_count()
+    again = cuda_densify.densify_wire16(*args, padB, V, count)
+    if int(count) or not torch.equal(again, slabs):
+        fail(f"{name} V={V} B={padB}: densify_wire16 took its scatter "
+             f"branch ({int(count)}) or changed between calls")
+    fill = cuda_ms(lambda: torch.full((slabs.numel(),), dense.INF32,
+                                      dtype=torch.int32, device=slabs.device),
+                   20)
+    return f"scatter branch 0; bare fill of the slabs {fill:.4f} ms"
+
+
 def phase_kernels(paths, cfg, device, results):
     """Each kernel against its plain version on every bucket."""
     import torch
@@ -458,8 +481,13 @@ def phase_kernels(paths, cfg, device, results):
                      f"plain (max_abs_err {err_d})")
             d_ms, d_plain = cuda_ms(k_fn, 20), cuda_ms(p_fn, 5)
             wire_in = [a for a in args if isinstance(a, torch.Tensor)]
-            record(results, kname, err_d, d_ms, d_plain,
-                   nbytes_of(*wire_in, slabs), 0)
+            d_bound = record(results, kname, err_d, d_ms, d_plain,
+                             nbytes_of(*wire_in, slabs), 0)
+            if kind == "wire16":
+                d_plain = f"{d_plain:.4f}; {d_bound}; " + check_wire16_tiles(
+                    name, V, padB, args, slabs)
+            else:
+                d_plain = f"{d_plain:.4f}"
             if V <= tsched.MAX_V:
                 solve = check_scan(name, V, padB, slabs, results)
             else:
@@ -469,7 +497,7 @@ def phase_kernels(paths, cfg, device, results):
                                                  results)
             print(f"kernels {name} V={V} B={realB} padB={padB} wire={kind}: "
                   f"bit-equal; {kname} {d_ms:.4f} ms/bucket "
-                  f"(plain {d_plain:.4f}); {solve}", flush=True)
+                  f"(plain {d_plain}); {solve}", flush=True)
     for Bk, runs in by_bk.items():
         print(f"blocked_dp A/B Bk={Bk}: {sum(r[3] for r in runs):.4f} ms "
               f"over {len(runs)} buckets (" + ", ".join(
@@ -479,9 +507,11 @@ def phase_kernels(paths, cfg, device, results):
 
 def check_dense_sp(bucket, sweep_rows, device, results):
     """The dense shortest-path kernel against its plain version on the
-    contigs of one dense bucket that ``pack_dense`` accepts; its s / a
-    rows must equal the sweep solve's d_s / d_a (the same lex-min (sum,
-    anom) after the same Jacobi sweeps).  Returns the contigs checked."""
+    contigs of one dense bucket that ``pack_dense`` accepts, with no
+    contig in its Jacobi branch; its s / a rows must equal the sweep
+    solve's d_s / d_a (the same lex-min (sum, anom) after the same Jacobi
+    sweeps).  Then the same contigs each with a cycle, every one in the
+    branch, held to the plain version.  Returns the line's text."""
     import numpy as np
     import torch
 
@@ -496,28 +526,55 @@ def check_dense_sp(bucket, sweep_rows, device, results):
             mats.append(m)
             dests.append(np.full((1, V), pg.g.dest, np.int32))
     if not rows:
-        return 0
+        return "dense_sp: no contig"
     ts = [torch.from_numpy(np.stack([m[k] for m in mats])).to(device)
           for k in range(5)]
     dest = torch.from_numpy(np.stack(dests)).to(device)
-    got = cuda_dense_sp.dense_sp(*ts, dest, ns)
+    what = f"long2000 python V={V}: dense_sp"
     want = dense_sp.dense_sp_plain(*ts, dest, ns)
-    err = max(int((got[k].long() - want[k].long()).abs().max())
-              for k in dense_sp.DSP_ROWS)
-    if err:
-        fail(f"long2000 python V={V}: dense_sp kernel disagrees with plain "
-             f"(max_abs_err {err})")
+    err = check_dense_sp_call(what, ts, dest, ns, want, 0)
     idx = torch.tensor(rows, device=device)
     for k, j in (("s", 0), ("a", 1)):
-        if not torch.equal(got[k][:, 0], sweep_rows[idx, j]):
-            fail(f"long2000 python V={V}: dense_sp {k} differs from the "
-                 f"sweep solve's")
-    ms = cuda_ms(lambda: cuda_dense_sp.dense_sp(*ts, dest, ns), 3)
+        if not torch.equal(want[k][:, 0], sweep_rows[idx, j]):
+            fail(f"{what} {k} differs from the sweep solve's")
+    ms = cuda_ms(lambda: cuda_dense_sp.dense_sp(*ts, dest, ns), 10)
     plain = cuda_ms(lambda: dense_sp.dense_sp_plain(*ts, dest, ns), 1)
     edges = int((ts[0] < dense_sp.INF32).sum())
-    record(results, "dense_sp", err, ms, plain,
-           nbytes_of(*ts, dest) + 6 * dest.numel() * 4, edges * DENSE_SP_OPS)
-    return len(rows)
+    bound = record(results, "dense_sp", err, ms, plain,
+                   nbytes_of(*ts, dest) + 6 * dest.numel() * 4,
+                   edges * DENSE_SP_OPS)
+    # every contig with a cycle (each first edge (u, v) also as (v, u)):
+    # check (a) sends it to the Jacobi branch
+    cyc = [t.clone() for t in ts]
+    for b in range(len(rows)):
+        u, v = (int(x) for x in torch.nonzero(ts[0][b] < dense_sp.INF32)[0])
+        for t in cyc:
+            t[b, v, u] = t[b, u, v]
+    want = dense_sp.dense_sp_plain(*cyc, dest, ns)
+    check_dense_sp_call(f"{what} (cycles)", cyc, dest, ns, want, len(rows))
+    jac = cuda_ms(lambda: cuda_dense_sp.dense_sp(*cyc, dest, ns), 3)
+    return (f"dense_sp {ms:.4f} ms on {len(rows)} contigs (plain {plain:.4f}; "
+            f"{bound}; {edges} edges; jacobi 0; Jacobi branch {jac:.4f} ms, "
+            f"every contig with a cycle), s / a = sweep's")
+
+
+def check_dense_sp_call(what, ts, dest, ns, want, n_want):
+    """One dense_sp kernel call held to the plain rows ``want``, with
+    ``n_want`` contigs in its Jacobi branch.  Returns max_abs_err (0)."""
+    import torch
+
+    from alignasm_tpu_torch.ops import cuda_dense_sp, dense_sp
+
+    jacobi = jacobi_count()
+    got = cuda_dense_sp.dense_sp(*ts, dest, ns, jacobi)
+    err = max(int((got[k].long() - want[k].long()).abs().max())
+              for k in dense_sp.DSP_ROWS)
+    if err or not all(torch.equal(got[k], want[k]) for k in want):
+        fail(f"{what} kernel disagrees with plain (max_abs_err {err})")
+    if int(jacobi) != n_want:
+        fail(f"{what}: {int(jacobi)} contigs took the Jacobi branch, "
+             f"expected {n_want}")
+    return err
 
 
 def phase_python_kernels(paf, cfg, device, results):
@@ -577,8 +634,7 @@ def phase_python_kernels(paf, cfg, device, results):
                        edges * PATH_OPS)
         extra = ""
         if kind == "dense":
-            n = check_dense_sp(bk, got, device, results)
-            extra = f"; dense_sp bit-equal on {n} contigs, s / a = sweep's"
+            extra = "; " + check_dense_sp(bk, got, device, results)
         print(f"kernels long2000 python V={V} B={B} n_sweeps={ns} {kind}: "
               f"bit-equal; {kname} {ms:.4f} ms/bucket (plain {plain:.4f}; "
               f"{bound}; {edges} edges; jacobi 0; Jacobi branch {jac_ms:.4f} "

@@ -73,6 +73,78 @@ def _ragged_to_wire16(wire, B, V):
     return d16, v16, tab, np.int32(n_real), seeds, np.ones(B, bool)
 
 
+def _wire16_case(B, V, seed, filler=False, pad=0, unsorted=False,
+                 bad_vidx=False, wrap=False, dup=False):
+    """A 16-bit wire of B random DAGs (``_rand_wire`` encoded as
+    ``_ragged_to_wire16`` does) over padB = B + ``pad`` slabs, with seeds
+    seeding the padding contigs' dest/src cells and padded with the trash
+    cell as export.cc writes them, and entries past n_real that are not
+    zeros.  Variants: ``filler`` rewrites contig 1's span as the exporter
+    rewrites a rejected contig's (its dest cell, then zero deltas that
+    repeat its src cell with value 0); ``unsorted`` shuffles the seeds;
+    ``bad_vidx`` points a few entries past the table (a JAX gather
+    clamps); ``wrap`` (pad >= 1) appends u16 deltas that carry the int32
+    positions past 2^31 (dropped), around 2^32 and back into the first
+    padding slab's first rows, cells no other entry or seed writes;
+    ``dup`` repeats a few cells right after themselves with other values
+    (a serial scatter keeps the last) and follows the first seed with two
+    more pairs of its cell (values 7, then 9).  Returns (the wire as
+    export_wire16 returns it, padB)."""
+    rng = np.random.default_rng(seed)
+    M = V * (V + 1)
+    padB = B + pad
+    trash = padB * M
+    w = _rand_wire(B, V, 0.3, seed)
+    real = w[0] < B * M
+    order = np.argsort(w[0][real], kind="stable")
+    cells = w[0][real][order].astype(np.int64)
+    vals = w[1][real][order].astype(np.int64)
+    if filler:
+        lo, hi = np.searchsorted(cells, [M, 2 * M])
+        cells[lo:hi] = M + V * V + 1
+        cells[lo] = M + V * V
+        vals[lo:hi] = 0
+    if dup:
+        k = np.sort(rng.choice(len(cells), 5, replace=False))
+        cells = np.insert(cells, k, cells[k])
+        vals = np.insert(vals, k, rng.integers(0, 1000, 5))
+    deltas = np.diff(cells, prepend=0)
+    if wrap:  # every position between lies outside [0, padB * M)
+        assert pad >= 1
+        targets = B * M + np.array([3, 5, 17, 18])
+        first = int(cells[-1]) + 65535
+        k, r = divmod(2**32 + int(targets[0]) - 65535 - first, 65535)
+        deltas = np.concatenate([deltas, np.full(k + 1, 65535), [r, 65535],
+                                 np.diff(targets)])
+        vals = np.concatenate([vals, rng.integers(0, 1000, k + 3 + 3)])
+    assert ((deltas >= 0) & (deltas < 2**16)).all()
+    table, inv = np.unique(vals, return_inverse=True)
+    n_real = len(deltas)
+    cap = 1 << max(3, n_real.bit_length())  # room past n_real
+    d16 = rng.integers(0, 2**16, cap).astype(np.uint16)
+    v16 = rng.integers(0, 2**16, cap).astype(np.uint16)
+    d16[:n_real] = deltas
+    v16[:n_real] = inv
+    if bad_vidx:
+        v16[rng.choice(n_real, 4, replace=False)] = [65535, 40000,
+                                                     len(table), 9999]
+    tcap = 1 << max(3, (len(table) - 1).bit_length())
+    tab = np.zeros(tcap, np.int32)
+    tab[: len(table)] = table
+    S = 1 << max(3, (max(2 * pad, 1) - 1).bit_length())
+    seeds = np.full((2, S), trash, np.int32)
+    seeds[1] = 0
+    for k in range(pad):
+        seeds[0, 2 * k] = (B + k) * M + V * V
+        seeds[0, 2 * k + 1] = (B + k) * M + V * V + 1
+    if dup:  # still sorted: the two pairs follow the first
+        seeds = np.insert(seeds, [1, 1], [[seeds[0, 0]] * 2, [7, 9]], axis=1)
+    if unsorted:
+        seeds = seeds[:, rng.permutation(seeds.shape[1])]
+    return (d16, v16, tab, np.int32(n_real), np.ascontiguousarray(seeds),
+            np.ones(B, bool)), padB
+
+
 def _inf_sum_slabs(B, V):
     """Slabs whose contig b holds, at base = 3b mod (V - 7), a chain
     base+2 -> base+3 -> ... -> base+7 = dest whose score sum from base+2
@@ -206,8 +278,42 @@ def test_kernels_match_plain_on_the_card(cuda_device, V, density, seed, nv,
     assert torch.equal(rows, tdense.solve_slab_topo_nxt8(slabs))
     if V <= 128 and not into_dest:
         args = wire16_to_device(_ragged_to_wire16(w, B, V), cuda_device)
-        assert torch.equal(cuda_densify.densify_wire16(*args, B, V), slabs)
+        count = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        assert torch.equal(cuda_densify.densify_wire16(*args, B, V, count),
+                           slabs)
+        assert int(count) == 0  # the tiles, not the scatter branch
         assert torch.equal(tdense.densify_wire16(*args, B, V), slabs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,kw", [
+    ("seeds", dict(pad=3)), ("filler", dict(filler=True, pad=2)),
+    ("unsorted", dict(pad=5, unsorted=True)),
+    ("bad-vidx", dict(pad=1, bad_vidx=True)), ("dup", dict(pad=4, dup=True)),
+    ("dup-unsorted", dict(pad=4, dup=True, unsorted=True)),
+    ("wrap", dict(pad=2, wrap=True)),
+    ("wrap-unsorted", dict(pad=2, wrap=True, unsorted=True, filler=True)),
+    ("big", dict(pad=300, filler=True)),
+    ("big-unsorted", dict(pad=300, unsorted=True)),
+])
+def test_wire16_kernel_matches_plain_on_the_card(cuda_device, case, kw):
+    """The 16-bit densify kernel (tiles, or the scatter branch when the
+    int32 positions wrap) bit-equals the plain version run on the CPU,
+    where a repeated cell or seed keeps the last pair in stream order: a
+    rejected contig's filler, padding seeds sorted and shuffled, repeated
+    cells and seeds of other values, value indices past the table, entries
+    past n_real that are not zeros, and a wire of several scan chunks
+    over many tiles ("big": 316 slabs of V = 64).  ``scatter_branch`` counts the wrap."""
+    from alignasm_tpu_torch.ops import cuda_densify
+
+    B, V = (16, 64) if case.startswith("big") else (6, 8)
+    w16, padB = _wire16_case(B, V, 11, **kw)
+    count = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = cuda_densify.densify_wire16(*wire16_to_device(w16, cuda_device),
+                                      padB, V, count)
+    want = tdense.densify_wire16(*wire16_to_device(w16, "cpu"), padB, V)
+    assert torch.equal(got.cpu(), want)
+    assert int(count) == int("wrap" in case)
 
 
 @pytest.mark.gpu
@@ -310,6 +416,72 @@ def _to(dev, *arrs):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
 
 
+DENSE_SP_CASES = ("dag", "ties", "wrap", "dests", "cycle", "ladder")
+
+
+def _dense_sp_case(B, V, seed, case):
+    """Dense shortest-path inputs of one case: five (B, V, V) int32
+    matrices and the (B, 1, V) dest row, each contig numbered in a
+    shuffled order.  "dag": position i links to up to three of the next
+    16 positions, to i + 1, and to dest (position V - 1) with probability
+    0.2; scores in [0, 1000), anomalies in [0, 3), mapq fractions
+    nz / tot with 0 <= nz <= tot < 120, unique ranks.  "ties": scores,
+    anomalies and fractions from a few values and ranks from four, so
+    that candidates tie at every level.  "wrap": scores in [-2^31, 2^30)
+    and anomalies, numerators, totals and ranks anywhere in int32, so
+    that sums wrap and keys pass the cascade's off values.  "dests": a dest row that names
+    several lanes (each one starts as a dest).  "cycle": the DAG plus an
+    edge from position i + 2 back to i.  "ladder": a chain through every
+    position into dest and an edge from each position to dest at three
+    times the chain's cost, so that position i finds a cheaper path one
+    sweep after another (about V^2 / 2 changes)."""
+    rng = np.random.default_rng(seed)
+    mats = [np.full((B, V, V), tdense.INF32, np.int32)]
+    mats += [np.zeros((B, V, V), np.int32) for _ in range(3)]
+    mats.append(np.full((B, V, V), tdense.INF32, np.int32))
+    drow = np.empty((B, 1, V), np.int32)
+    for b in range(B):
+        if case == "ladder":
+            u = np.concatenate([np.arange(V - 1), np.arange(V - 2)])
+            v = np.concatenate([np.arange(1, V), np.full(V - 2, V - 1)])
+        else:
+            pairs = {(i, i + 1) for i in range(V - 1)}
+            for i in range(V - 1):
+                for j in rng.integers(i + 1, min(V, i + 17),
+                                      rng.integers(0, 4)):
+                    pairs.add((i, int(j)))
+                if rng.random() < 0.2:
+                    pairs.add((i, V - 1))
+            if case == "cycle":
+                pairs.add((min(2, V - 1), 0))
+            u, v = np.array(sorted(pairs)).T
+        k = len(u)
+        if case == "ladder":
+            vals = [np.where(v == u + 1, 1, 3 * (V - 1 - u)), np.zeros(k),
+                    np.ones(k), np.full(k, 2), rng.permutation(k)]
+        elif case == "ties":
+            nz = rng.integers(0, 3, k)
+            vals = [rng.integers(0, 3, k) * 100, rng.integers(0, 2, k), nz,
+                    2 * nz + rng.integers(0, 2, k), rng.integers(0, 4, k)]
+        elif case == "wrap":
+            i32 = (-2**31, 2**31)
+            vals = [rng.integers(-2**31, 2**30, k), rng.integers(*i32, k),
+                    rng.integers(*i32, k), rng.integers(*i32, k),
+                    rng.integers(*i32, k)]
+        else:
+            nz = rng.integers(0, 60, k)
+            vals = [rng.integers(0, 1000, k), rng.integers(0, 3, k), nz,
+                    nz + rng.integers(0, 60, k), rng.permutation(k)]
+        perm = rng.permutation(V)
+        for m, x in zip(mats, vals):
+            m[b, perm[u], perm[v]] = x
+        drow[b] = perm[V - 1]
+        if case == "dests":
+            lanes = rng.choice(V, 3, replace=False)
+            drow[b, 0, lanes] = lanes
+    return mats, drow
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("V,density,seed,nv,n_sweeps", [
     (8, 0.5, 0, None, 16), (64, 0.1, 1, 40, 64), (256, 0.05, 2, None, 256),
@@ -370,21 +542,66 @@ def test_relax32_kernel_matches_plain_on_the_card(cuda_device, V, density,
 @pytest.mark.parametrize("V,density,seed,nv,n_sweeps", [
     (8, 0.5, 0, None, 16), (64, 0.2, 1, 40, 64), (256, 0.05, 2, None, 256),
     (512, 0.02, 3, 400, 5),
+    # rows of up to 59 edges: more than one a lane
+    (128, 0.4, 5, None, 128), (128, 0.4, 5, None, 3),
 ])
 def test_dense_sp_kernel_matches_plain_on_the_card(cuda_device, V, density,
                                                    seed, nv, n_sweeps):
     """The dense shortest-path kernel bit-equals its plain version, the
-    f32 mapq-fraction key included."""
+    f32 mapq-fraction key included, with no contig in its Jacobi
+    branch."""
     from alignasm_tpu_torch.ops import cuda_dense_sp, dense_sp
 
     B = 5
     *mats, dest = _rand_dag_mats(B, V, density, seed, nv)
     mats = _to(cuda_device, *mats)
     drow = _to(cuda_device, np.repeat(dest[:, None, None], V, 2))[0]
-    got = cuda_dense_sp.dense_sp(*mats, drow, n_sweeps)
+    jacobi = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = cuda_dense_sp.dense_sp(*mats, drow, n_sweeps, jacobi)
     want = dense_sp.dense_sp_plain(*mats, drow, n_sweeps)
     for k in dense_sp.DSP_ROWS:
         assert torch.equal(got[k], want[k]), k
+    assert int(jacobi) == 0  # DAGs: the checked pass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,case", [
+    (V, case) for V in (8, 64, 256, 512)
+    for case in (*DENSE_SP_CASES[:5], "short")] + [
+    (64, "ladder"), (256, "ladder"), (4096, "dag"), (4096, "short")])
+def test_dense_sp_kernel_pass_and_jacobi_branch_on_the_card(cuda_device, V,
+                                                            case):
+    """The dense shortest-path kernel's checked pass bit-equals the plain
+    version on shuffled-numbering DAGs (ties at every level of the
+    cascade, sums that wrap int32, several dest lanes, n_sweeps 2 below
+    the longest path: "short"), with no contig in the Jacobi branch; a
+    cycle (check (a)) or, at V = 256, a ladder's ~V^2 / 2 history entries
+    (check (d); at V = 64 they fit) send every contig there.  V = 512
+    holds the pass's workspace in one CTA's shared memory, V = 4096 in
+    the global workspace; up to V = 1024 a global spill pool extends the
+    history's."""
+    from alignasm_tpu_torch.ops import _build, cuda_dense_sp, dense_sp
+
+    B = 1 if V == 4096 else 3
+    mats, drow = _dense_sp_case(B, V, 30 + V, "dag" if case == "short"
+                                else case)
+    ns = 2 if case == "short" else V
+    args = _to(cuda_device, *mats, drow)
+    jacobi = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = cuda_dense_sp.dense_sp(*args, ns, jacobi)
+    want = dense_sp.dense_sp_plain(*args, ns)
+    for k in dense_sp.DSP_ROWS:
+        assert torch.equal(got[k], want[k]), k
+    branch = case == "cycle" or (case == "ladder" and V == 256)
+    assert int(jacobi) == (B if branch else 0)
+    # beside shared memory a spill pool of 16V five-word entries, above
+    # V = 1024 the whole workspace in global memory
+    assert _build.load_library().aln_dense_sp_work_words(V) \
+        == (80 * V if V <= 1024 else 100 * V + 8)
+    n = cuda_dense_sp.dense_sp.launches
+    again = dense_sp.dense_sp(*args, ns)
+    assert cuda_dense_sp.dense_sp.launches == n + 1
+    assert all(torch.equal(again[k], want[k]) for k in want)
 
 
 def _shuffled_dag_edges(B, V, seed, chain=3):
