@@ -14,8 +14,12 @@ and the device path is ported:
   ops/      plain PyTorch versions, wire transport, CUDA kernel wrappers
   csrc/     the CUDA C++ kernels (built with nvcc at first use)
   runtime/  the bucket scheduler around the kernels (solve_dataset_torch):
-            the native plane and the Python plane
-  cli.py    ``python -m alignasm_tpu_torch.cli in.paf --engine cuda``
+            the native plane and the Python plane; the routing cost model
+            (costmodel.py, a copy) and its calibration on the card
+            (devbench.py --calibrate, calibration.json); resume
+            (checkpoint.py, a copy); the exact engine's process pool
+            (parallel_host.py, a copy)
+  cli.py    ``python -m alignasm_tpu_torch.cli in.paf [--engine cuda]``
 
 Every public function takes ``device``: a CPU device runs the plain
 versions, a CUDA device the kernels.  The package never imports jax.

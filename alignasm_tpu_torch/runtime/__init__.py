@@ -1,1 +1,2 @@
-"""Runtime orchestration of the port: the bucket scheduler."""
+"""Runtime orchestration of the port: the bucket scheduler, routing and
+its calibration, resume."""

@@ -17,9 +17,14 @@ native engine's whatever it answers.  A host-plane failure (wire export,
 finish) degrades the affected contigs to the native solve with the reason
 in ``stats["device_error"]``; a kernel that fails to build, launch or run
 raises.  It covers buckets with V <= 8192 on one device.  With
-``device_routing="never"`` nothing goes to the device: a run that writes
-takes the fused ``native.run`` (``_solve_native_routed``), an in-memory
-run the exporter's native solve of every contig.
+``device_routing="auto"`` (the default) the port's calibrated cost model
+(runtime/costmodel.py) decides: when it predicts that no bucket can win,
+nothing goes to the device, else each bucket goes only where it predicts
+a win (``_gate_buckets``).  When nothing goes to the device (also with
+``"never"``), a run that writes takes the fused ``native.run``
+(``_solve_native_routed``), an in-memory run the exporter's native solve
+of every contig.  ``solve_missing_torch_native`` runs the same pipeline
+on a subset of the file's contigs (resume, runtime/checkpoint.py).
 
 The Python plane (``src_paths=None``, a parsed ``dataset``; the JAX
 package's test and degrade plane): per contig ``build_graph`` ->
@@ -58,20 +63,40 @@ MAX_DEVICE_V = 8192  # a V = 16384 slab is 1 GB of int32 per contig
 
 
 def _check_supported(cfg: AlignasmConfig) -> None:
-    """Raise NotImplementedError for what the native plane does not cover
-    yet, naming the ROADMAP.md item that will."""
-    if cfg.device_routing == "auto":
-        raise NotImplementedError(
-            "device_routing='auto' needs the port's own calibration; the "
-            "JAX package's cost model was measured on a TPU (ROADMAP.md, "
-            "queue 1: 'Routing: device_routing=\"auto\"'); use 'always' "
-            "or 'never'")
-    if cfg.device_routing == "always" and cfg.device_max_v > MAX_DEVICE_V:
+    """Raise NotImplementedError for a device route the native plane does
+    not cover yet, naming the ROADMAP.md item that will."""
+    if cfg.device_max_v > MAX_DEVICE_V:
         raise NotImplementedError(
             f"device_max_v={cfg.device_max_v} > {MAX_DEVICE_V}: a bucket "
             "of V = 16384 holds 1 GB of slab per contig and no corpus of "
             "the repo reaches it (ROADMAP.md: 'Buckets above V = 8192'); "
             f"set device_max_v <= {MAX_DEVICE_V}")
+
+
+def _routing(cfg: AlignasmConfig):
+    """The routing decision of the JAX scheduler's solve_dataset_tpu:
+    ``(model, provenance, mode, allow_device)``.  ``"always"`` sends every
+    eligible contig to the device; ``"auto"`` only where the calibrated
+    cost model can predict a win (``any_possible_win``), bucket by bucket
+    (``_device_assist``); anything else, ``"never"`` included, routes
+    every contig to the native plane.  A device route that is not covered
+    raises (``_check_supported``)."""
+    from alignasm_tpu_torch.runtime.costmodel import load_model_info
+
+    model, model_prov = load_model_info()
+    mode = cfg.device_routing
+    allow_device = mode == "always" or (
+        mode == "auto" and model.any_possible_win())
+    if allow_device:
+        _check_supported(cfg)
+    return model, model_prov, mode, allow_device
+
+
+def _cost_model_stats(model, model_prov) -> dict:
+    """``stats["cost_model"]``: the model's summary and which measurement
+    the gate ran on."""
+    return {**model.summary(),
+            "calibration": model_prov or {"source": "defaults"}}
 
 
 def _device_cap(cfg) -> int:
@@ -232,25 +257,57 @@ def _launch_buckets(buckets, n_edges, exporter, device, launches, stats):
         stats.setdefault("bucket_vs", []).append(int(V))
 
 
-def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
-                   overlap=None):
-    """Run the bucket device pipeline over the device-eligible contigs:
-    bucket by padded V, export and launch every bucket, then per bucket
-    wait for its rows and run the threaded C++ finish.
+def _gate_buckets(buckets, meta, model, stats):
+    """The cost gate of ``device_routing="auto"`` (the JAX scheduler's
+    ``_device_assist``): keep a bucket only when ``model`` predicts that
+    its device route beats the native solve of its contigs, from the JAX
+    package's byte estimates (an int32 pair per edge of ragged wire, a
+    V + 2 byte row per contig).  Gated buckets and their contigs are
+    counted in ``stats["buckets_gated"]`` / ``["contigs_gated"]`` and fall
+    to the caller's native solve."""
+    n_rec, n_edges = meta[:, 1], meta[:, 3]
+    kept = []
+    for V, idxs in buckets:
+        wire_b = int(n_edges[idxs].sum()) * 8 + 64
+        row_b = len(idxs) * (V + 2)
+        if model.bucket_profitable(len(idxs), int(V), wire_b, row_b,
+                                   int(n_rec[idxs].sum())):
+            kept.append((V, idxs))
+        else:
+            stats["buckets_gated"] = stats.get("buckets_gated", 0) + 1
+            stats["contigs_gated"] = stats.get("contigs_gated", 0) + len(idxs)
+    return kept
+
+
+def _device_assist(exporter, cfg: AlignasmConfig, meta, idx_pool, stats,
+                   device, overlap=None, model=None):
+    """Run the bucket device pipeline over the device-eligible members of
+    ``idx_pool`` (contig indices into the exporter): bucket by padded V,
+    export and launch every bucket, then per bucket wait for its rows and
+    run the threaded C++ finish.  With a cost ``model``
+    (``device_routing="auto"``) only the buckets it predicts to win are
+    launched (``_gate_buckets``).
 
     ``overlap``: optional 0-arg callable run on a host thread while the
     main thread waits on the device (the caller's native solve of the
-    non-device contigs).
+    non-device contigs, a set disjoint from ``idx_pool``'s eligible
+    members).
 
     A failing export or finish (the host plane) leaves the affected
-    contigs without stored results, for the caller's solve_remaining, and
+    contigs without stored results, for the caller's native solve, and
     is recorded in ``stats["device_error"]`` with a RuntimeWarning.  A
     kernel build, launch or device fault raises, after the overlap thread
-    has been joined."""
-    idx_all = np.where(_eligible_mask(meta, cfg))[0]
+    has been joined.
+
+    Returns the contig indices whose results the finish stored."""
+    pool_mask = np.zeros(len(meta), bool)
+    pool_mask[idx_pool] = True
+    idx_all = np.where(_eligible_mask(meta, cfg) & pool_mask)[0]
     n_v, n_edges = meta[:, 2], meta[:, 3]
     order = idx_all[np.argsort(n_v[idx_all], kind="stable")]
     buckets = _dense_buckets(order, n_v)
+    if model is not None:
+        buckets = _gate_buckets(buckets, meta, model, stats)
 
     t0 = time.perf_counter()
     launches = []
@@ -264,6 +321,7 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
 
     t0 = time.perf_counter()
     sync_s = cfinish_s = 0.0
+    covered = []
     try:
         for idxs, realB, V, (host, ev), ok in launches:
             t1 = time.perf_counter()
@@ -290,6 +348,7 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
             stats.setdefault("bucket_phases", []).append(
                 (int(V), int(len(idxs)), round(t2 - t1, 4),
                  round(time.perf_counter() - t2, 4)))
+            covered.append(idxs)
             stats["device"] += n_fast
             stats["fallback"] += n_fb
     finally:  # the exporter must outlive the overlap thread's solve
@@ -303,13 +362,16 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, stats, device,
     stats["finish_s"] = round(time.perf_counter() - t0, 4)  # wait + finish
     stats["sync_s"] = round(sync_s, 4)        # device wait + transfer
     stats["cfinish_s"] = round(cfinish_s, 4)  # threaded C++ finish
+    return np.concatenate(covered) if covered else np.empty(0, np.int64)
 
 
-def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix):
-    """``device_routing="never"`` with output files: the fused native
-    pipeline, as ``--engine native`` runs it (the JAX scheduler's
-    ``_solve_native_routed``; its ``cost_model`` key waits for the port's
-    calibration)."""
+def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix,
+                         model, mode, model_prov=None):
+    """The routing sent the whole corpus away from the device (``"never"``,
+    or ``"auto"`` under a cost model that predicts no win) and the caller
+    wants output files: the fused native pipeline, as ``--engine native``
+    runs it, with the decision and its calibration in the stats (the JAX
+    scheduler's ``_solve_native_routed``)."""
     t0 = time.perf_counter()
     alt = src_paths[1]
     if alt and os.path.getsize(alt) == 0:
@@ -321,8 +383,9 @@ def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix):
     )
     solve_dataset_torch.last_stats = {
         "device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
-        "host_plane": "native", "routing": cfg.device_routing,
+        "host_plane": "native", "routing": mode,
         "routed": "fused-native", "device_routed_frac": 0.0,
+        "cost_model": _cost_model_stats(model, model_prov),
         "written_natively": True,
         "read_s": run_stats["read_s"], "solve_s": run_stats["solve_s"],
         "write_s": run_stats["write_s"],
@@ -334,20 +397,23 @@ def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix):
 
 
 def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
-                        device, allow_device: bool):
+                        device, allow_device: bool, model, mode,
+                        model_prov=None):
     """The C++ host plane does parse -> graph build -> wire export ->
     device-assisted finish -> output writing; Python only orchestrates
     bucket-shaped launches.  Contigs outside the device envelope
     (singletons, oversize, over the vertex cap, over the score bound)
     solve natively on a host thread that overlaps the device wait.
-    Without ``allow_device`` every contig solves natively.  A ``dataset``
+    Without ``allow_device`` every contig solves natively; under
+    ``mode == "auto"`` the cost ``model`` gates each bucket.  A ``dataset``
     must hold the file's contigs (AssertionError otherwise, as in the JAX
     scheduler)."""
     t_start = time.perf_counter()
     native.tune_heap()
     stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
              "host_plane": "native", "dense_buckets": 0, "native_direct": 0,
-             "routing": cfg.device_routing}
+             "routing": mode, "cost_model": _cost_model_stats(model,
+                                                               model_prov)}
     if allow_device:
         stats["torch_device"] = str(device)
     solve_dataset_torch.last_stats = stats
@@ -388,9 +454,10 @@ def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
                     stats["overlap_solve_s"] = round(
                         time.perf_counter() - t1, 4)
 
-            _device_assist(exporter, cfg, meta, stats, device,
-                           overlap=overlap)
-        else:  # device_routing="never", results in memory
+            _device_assist(exporter, cfg, meta, np.arange(n), stats, device,
+                           overlap=overlap,
+                           model=model if mode == "auto" else None)
+        else:  # routed to the native plane, results in memory
             stats["routed"] = "native-plane"
             t0 = time.perf_counter()
             exporter.solve_subset(non_device,
@@ -648,8 +715,12 @@ def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
     With ``src_paths = (paf, alt_or_None)`` the native plane parses the
     files itself; with ``write_prefix`` it writes the three PAF files and
     (None, None, None) is returned, without it the per-contig results.
-    ``cfg.device_routing`` is "always" (the device pipeline) or "never"
-    (every contig on the host plane); "auto" raises NotImplementedError.
+    ``cfg.device_routing`` is "always" (the device pipeline), "auto" (the
+    default: the device only where the port's calibrated cost model,
+    ``runtime/costmodel.py``, predicts a win, bucket by bucket; with no
+    possible win the fused native plane) or "never" (every contig on the
+    host plane); the decision and its calibration land in
+    ``stats["cost_model"]``.
     Without ``src_paths`` (or when the native plane raises NativeError
     and a parsed ``dataset`` was given) the Python plane solves
     ``dataset`` in buckets of ``batch_size`` contigs and returns the
@@ -657,13 +728,14 @@ def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
     package.  Stats land in ``solve_dataset_torch.last_stats``."""
     dev = as_device(device)
     if src_paths is not None:
-        _check_supported(cfg)
-        allow_device = cfg.device_routing == "always"
+        model, model_prov, mode, allow_device = _routing(cfg)
         try:
             if not allow_device and write_prefix is not None:
-                return _solve_native_routed(cfg, src_paths, write_prefix)
+                return _solve_native_routed(cfg, src_paths, write_prefix,
+                                            model, mode, model_prov)
             return _solve_torch_native(dataset, cfg, src_paths, write_prefix,
-                                       dev, allow_device)
+                                       dev, allow_device, model, mode,
+                                       model_prov)
         except native.NativeError as exc:
             if dataset is None:
                 raise  # no parsed dataset to degrade to
@@ -685,3 +757,85 @@ def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
 
 
 solve_dataset_torch.last_stats = None
+
+
+def solve_missing_torch_native(cfg: AlignasmConfig, src_paths, missing,
+                               put_chunk=None, chunk: int = 4096,
+                               threads: int = 0, expected_n=None, *,
+                               device="cuda"):
+    """Device-engine solve of an explicit contig subset on the native host
+    plane: the resume path of ``checkpoint.solve_dataset_resumable(engine=
+    "cuda")`` (the JAX scheduler's ``solve_missing_tpu_native``).
+
+    Opens one exporter (one parse), routes as ``solve_dataset_torch``
+    does, runs the bucket device pipeline over the device-eligible members
+    of ``missing`` while the other members solve natively on a host
+    thread, native-solves whatever the device left, and streams the
+    results back through ``put_chunk(indices, outs, alts, maxes)`` in
+    ``chunk``-sized slices (the journal's flush granularity).  A file
+    whose contig count differs from ``expected_n`` raises RuntimeError
+    before any ``put_chunk``.  Returns the stats dict (also
+    ``solve_dataset_torch.last_stats``)."""
+    dev = as_device(device)
+    t_start = time.perf_counter()
+    native.tune_heap()
+    stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
+             "host_plane": "native", "dense_buckets": 0, "native_direct": 0}
+    solve_dataset_torch.last_stats = stats
+    missing = np.ascontiguousarray(np.sort(np.asarray(missing, np.int64)))
+    exporter = native.GraphExporter(
+        src_paths[0], alt_path=src_paths[1],
+        alt_baseline=cfg.alt_baseline,
+        non_skip_linkable=cfg.non_skip_linkable,
+        max_records=max(cfg.max_device_records, _device_cap(cfg)),
+        config=cfg, threads=threads,
+    )
+    try:
+        meta = exporter.meta_bulk()
+        stats["n_contigs_file"] = len(meta)
+        if expected_n is not None and len(meta) != expected_n:
+            # results stored under the caller's digests would belong to
+            # other contigs: raise before any put_chunk runs
+            raise RuntimeError(
+                f"native parse found {len(meta)} contigs but the caller "
+                f"expects {expected_n}: src_paths does not match dataset")
+        model, model_prov, mode, allow_device = _routing(cfg)
+        stats["routing"] = mode
+        stats["cost_model"] = _cost_model_stats(model, model_prov)
+        if allow_device:
+            stats["torch_device"] = str(dev)
+        eligible = _eligible_mask(meta, cfg) if allow_device \
+            else np.zeros(len(meta), bool)
+        non_device = missing[~eligible[missing]]
+        exporter.prepare_results()
+        overlap = None
+        if len(non_device):
+            def overlap(idx=non_device):
+                t1 = time.perf_counter()
+                try:
+                    exporter.solve_subset(idx, threads=threads)
+                except Exception as exc:  # surfaced via stats
+                    stats["overlap_error"] = repr(exc)[:500]
+                stats["overlap_solve_s"] = round(time.perf_counter() - t1, 4)
+
+        if allow_device:
+            covered = _device_assist(exporter, cfg, meta, missing, stats, dev,
+                                     overlap=overlap,
+                                     model=model if mode == "auto" else None)
+        else:
+            covered = np.empty(0, np.int64)
+            if overlap is not None:
+                overlap()
+        leftover = np.setdiff1d(missing, np.concatenate([covered, non_device]))
+        if len(leftover):
+            exporter.solve_subset(leftover, threads=threads)
+        stats["native_direct"] = int(len(non_device) + len(leftover))
+        if put_chunk is not None:
+            for lo in range(0, len(missing), chunk):
+                part = missing[lo:lo + chunk]
+                o, a, m = exporter.fetch_results_for(part)
+                put_chunk(part, o, a, m)
+    finally:
+        exporter.close()
+    stats["total_s"] = round(time.perf_counter() - t_start, 4)
+    return stats

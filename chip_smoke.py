@@ -60,6 +60,21 @@ Run from the root of a checkout, on a machine with a CUDA device:
 4. Profile: the native plane once more on each corpus under
    torch.profiler: the device's busy time and share, and the scan's and
    the blocked solve's kernel time.
+5. Routing (``device_routing="auto"``, ``DEFAULT_CONFIG``): runs
+   ``python -m alignasm_tpu_torch.runtime.devbench --calibrate`` into a
+   temporary file (N and its seconds printed, every field beside the
+   card's name and power limit, parsed by the port's ``_parse_model``),
+   then routes long2000 and karyotype10k under that calibration, under
+   near-free transport (no bucket gated, the device and fallback counts of
+   phase 3's "always" run) and under a 1000 s round trip (every bucket
+   gated, nothing launched), each run's routing stats and launches
+   printed and its files byte-compared with ``native.run``'s; then resumes
+   long2000 on the card: a journal pre-filled with the even-indexed
+   contigs through the native engine, then ``cli.run([long2000,
+   "--resume", journal])`` under near-free transport solves the odd ones
+   through ``solve_missing_torch_native`` (``device`` > 0), files
+   byte-equal to ``native.run``'s.  The near-free runs' and the resumed
+   run's launches go into the kernels line beside phase 3's.
 
 Then one JSON line of per-kernel results (``launches`` counted in phase
 3, null for the library entries: ``dense_sp`` and the sweep solve's slab
@@ -826,10 +841,12 @@ def outputs(prefix):
 
 
 def phase_end_to_end(paths, cfg, device, tmp):
-    """The port's native plane vs native.run on each corpus."""
+    """The port's native plane vs native.run on each corpus.  Returns each
+    corpus's stats."""
     from alignasm_tpu_torch import native
     from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
+    by_name = {}
     for name, paf in paths.items():
         native.drain_teardowns()
         t0 = time.perf_counter()
@@ -862,6 +879,8 @@ def phase_end_to_end(paths, cfg, device, tmp):
               f"{stats['cfinish_s']}) vs native.run {n / t_native:.1f} "
               f"contigs/s ({t_native:.4f} s, {nstats['contigs']} contigs)",
               flush=True)
+        by_name[name] = dict(stats)
+    return by_name
 
 
 def phase_python_plane(name, paf, want_stats, cfg, device, tmp):
@@ -955,6 +974,211 @@ def phase_profile(paths, cfg, device, tmp):
               flush=True)
 
 
+# The routing phase: the calibration corpus's contigs (the JAX calibration's
+# default), the corpora it routes, and tests/test_routing.py's two
+# overrides: near-free transport launches every bucket, a 1000 s round trip
+# gates every one.
+CAL_CONTIGS = 20000
+ROUTED = ("long2000", "karyotype10k")
+LAUNCH_ALL = {"finish_vs_solve": 0.2, "dispatch_rtt_s": 1e-7,
+              "h2d_bytes_per_s": 1e12, "d2h_bytes_per_s": 1e12,
+              "device_s_per_contig": 1e-9, "device_s_per_step": 1e-9,
+              "solve_s_per_record": 1e-3}
+GATE_ALL = {"finish_vs_solve": 0.2, "dispatch_rtt_s": 1000.0}
+COST_ENV = "ALIGNASM_TORCH_COSTMODEL"
+
+
+def calibrate_into(path, card):
+    """``python -m alignasm_tpu_torch.runtime.devbench --calibrate`` into
+    ``path``; prints N, its seconds and every field beside the card's name
+    and power limit, and checks that the port's ``_parse_model`` reads
+    it."""
+    from alignasm_tpu_torch.runtime import costmodel
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "alignasm_tpu_torch.runtime.devbench",
+         "--calibrate", "--out", str(path), str(CAL_CONTIGS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"devbench --calibrate exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    raw = json.loads(path.read_text())
+    model, _prov = costmodel._parse_model(raw, "artifact", str(path))
+    print(f"routing: devbench --calibrate N={CAL_CONTIGS} in {secs:.1f} s "
+          f"({card})", flush=True)
+    for k, v in raw.items():
+        if k != "_meta":
+            print(f"routing: calibration {k} = {v!r} ({card})", flush=True)
+    meta = raw["_meta"]
+    print(f"routing: calibration _meta device_kind {meta['device_kind']!r} "
+          f"power_limit {meta['power_limit']!r} date {meta['date']} "
+          f"details {json.dumps(meta['details'])}", flush=True)
+    print(f"routing: calibration summary {json.dumps(model.summary())}",
+          flush=True)
+    return raw
+
+
+def routed_run(name, paf, tmp, tag, device):
+    """``solve_dataset_torch(None, DEFAULT_CONFIG, ...)`` ("auto") on
+    ``paf`` under the calibration in ``$ALIGNASM_TORCH_COSTMODEL``, files
+    held to native.run's, its launches counted from 0; returns (stats,
+    launches)."""
+    from alignasm_tpu_torch import native
+    from alignasm_tpu_torch.config import DEFAULT_CONFIG
+    from alignasm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
+
+    native.drain_teardowns()
+    prefix = tmp / f"auto_{tag}_{name}"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    solve_dataset_torch(None, DEFAULT_CONFIG, src_paths=(str(paf), None),
+                        write_prefix=str(prefix), device=device)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = solve_dataset_torch.last_stats
+    if "device_error" in stats:
+        fail(f"routing {tag} {name}: device path degraded: "
+             f"{stats['device_error']}")
+    if outputs(prefix) != outputs(tmp / f"native_{name}"):
+        fail(f"routing {tag} {name}: output files differ from native.run")
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"routing {tag} {name}: files byte-equal to native.run; routing "
+          f"{stats['routing']} routed {stats.get('routed')} "
+          f"device_routed_frac {stats['device_routed_frac']} device "
+          f"{stats['device']} fallback {stats['fallback']} buckets_gated "
+          f"{stats.get('buckets_gated', 0)} contigs_gated "
+          f"{stats.get('contigs_gated', 0)}; launches {launched}; "
+          f"{secs:.4f} s; cost_model {json.dumps(stats['cost_model'])}",
+          flush=True)
+    return stats, counts
+
+
+def resume_run(paf, tmp, device):
+    """Resume on the card: a journal pre-filled with the even-indexed
+    contigs of ``paf`` through the native engine, then the command line
+    ``--resume`` under the near-free model (in $ALIGNASM_TORCH_COSTMODEL):
+    the odd ones go through solve_missing_torch_native on the card.  The
+    files must equal native.run's; returns the launches."""
+    import contextlib
+    import io
+
+    from alignasm_tpu_torch import cli
+    from alignasm_tpu_torch.config import DEFAULT_CONFIG
+    from alignasm_tpu_torch.io.paf import read_paf
+    from alignasm_tpu_torch.ops import launch_counts, reset_launch_counts
+    from alignasm_tpu_torch.runtime.checkpoint import (
+        Journal, contig_digest, solve_dataset_resumable,
+    )
+    from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
+
+    journal, full = tmp / "resume.journal", tmp / "resume_full.journal"
+    dataset = read_paf(str(paf))
+    t0 = time.perf_counter()
+    solve_dataset_resumable(dataset, DEFAULT_CONFIG, str(full),
+                            engine="native", src_paths=(str(paf), None))
+    src, dst = Journal(str(full)), Journal(str(journal))
+    try:
+        for contig in dataset.contigs[::2]:
+            key = contig_digest(contig, DEFAULT_CONFIG)
+            dst.put(key, src.get(key))
+    finally:
+        src.close()
+        dst.close()
+    prefill = time.perf_counter() - t0
+    solve_dataset_torch.last_stats = None
+    reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.run([str(paf), "--resume", str(journal)], device=device)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    stats = solve_dataset_torch.last_stats
+    if rc != 0 or stats is None:
+        fail(f"resume: the command line exited {rc}: {out.getvalue()[-2000:]}")
+    said = [ln for ln in out.getvalue().splitlines()
+            if ln.startswith("resume: ")]
+    want = f"'resumed': {len(dataset.contigs[::2])}, 'solved': " \
+           f"{len(dataset.contigs[1::2])}"
+    if not said or want not in said[0]:
+        fail(f"resume: expected {want}, the command line said {said}")
+    if stats["device"] <= 0 or "device_error" in stats:
+        fail(f"resume: no contig solved on the card ({stats})")
+    stem = str(paf)[: -len(".paf")]
+    if outputs(stem) != outputs(tmp / f"native_{paf.stem}"):
+        fail("resume: output files differ from native.run")
+    launched = {k: v for k, v in counts.items() if v}
+    print(f"routing resume {paf.stem}: {said[0]}; files byte-equal to "
+          f"native.run; device {stats['device']} fallback {stats['fallback']} "
+          f"native_direct {stats['native_direct']} buckets "
+          f"{stats['dense_buckets']}; launches {launched}; prefill (native "
+          f"engine) {prefill:.4f} s, resumed run {secs:.4f} s", flush=True)
+    return counts
+
+
+def phase_routing(paths, always, tmp, device, card):
+    """``device_routing="auto"`` on the card: calibrate, route long2000 and
+    karyotype10k under that calibration, under near-free transport (no
+    bucket gated; the device and fallback counts of the "always" run) and
+    under a 1000 s round trip (every bucket gated), each byte-equal to
+    native.run; then resume long2000 from a half-filled journal on the
+    card.  Returns the launches of the near-free runs and of the resumed
+    run."""
+    import os
+
+    saved = os.environ.get(COST_ENV)
+    try:
+        cal_path = tmp / "calibration.json"
+        calibrate_into(cal_path, card)
+        free, gate = tmp / "launch_all.json", tmp / "gate_all.json"
+        free.write_text(json.dumps(LAUNCH_ALL))
+        gate.write_text(json.dumps(GATE_ALL))
+        free_counts = {}
+        for name in ROUTED:
+            os.environ[COST_ENV] = str(cal_path)
+            st, _ = routed_run(name, paths[name], tmp, "calibrated", device)
+            if st["cost_model"]["calibration"]["source"] != "env":
+                fail(f"routing calibrated {name}: the calibration was not "
+                     f"read ({st['cost_model']})")
+            os.environ[COST_ENV] = str(free)
+            st, counts = routed_run(name, paths[name], tmp, "near-free",
+                                    device)
+            want = always[name]["device"] + always[name]["fallback"]
+            if st.get("buckets_gated", 0) or \
+                    st["device"] + st["fallback"] != want:
+                fail(f"routing near-free {name}: {st.get('buckets_gated', 0)} "
+                     f"buckets gated, device + fallback "
+                     f"{st['device'] + st['fallback']}, expected 0 and {want}")
+            free_counts = {k: free_counts.get(k, 0) + v
+                           for k, v in counts.items()}
+            os.environ[COST_ENV] = str(gate)
+            st, counts = routed_run(name, paths[name], tmp, "gate-all", device)
+            if st["device"] or st.get("buckets_gated", 0) < 1 or any(
+                    counts.values()):
+                fail(f"routing gate-all {name}: device {st['device']}, "
+                     f"{st.get('buckets_gated', 0)} buckets gated, launches "
+                     f"{counts}")
+        for k in ("densify_wire16", "densify_ragged", "topo_scan",
+                  "blocked_dp"):
+            if free_counts[k] < 1:
+                fail(f"routing near-free: kernel {k} was not launched")
+        os.environ[COST_ENV] = str(free)
+        resume_counts = resume_run(paths["long2000"], tmp, device)
+        if resume_counts["topo_scan"] < 1 or resume_counts["densify_ragged"] \
+                + resume_counts["densify_wire16"] < 1:
+            fail(f"routing resume: the densify and scan kernels were not "
+                 f"launched ({resume_counts})")
+    finally:
+        if saved is None:
+            os.environ.pop(COST_ENV, None)
+        else:
+            os.environ[COST_ENV] = saved
+    return free_counts, resume_counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1001,7 +1225,7 @@ def main() -> int:
         phase_python_kernels(paths["long2000"], cfg, device, results)
         phase_relax64_kernels(qs_paf, cfg, device, results)
         reset_launch_counts()
-        phase_end_to_end(paths, cfg, device, tmp)
+        always = phase_end_to_end(paths, cfg, device, tmp)
         counts["native"] = launch_counts()
         reset_launch_counts()
         phase_python_plane("long2000", paths["long2000"], PYTHON_PLANE, cfg,
@@ -1018,6 +1242,8 @@ def main() -> int:
         # are long2000's, its int64 buckets querysparse2000's
         counts["python"] = {k: long2000[k] + qs[k] for k in qs}
         phase_profile(paths, cfg, device, tmp)
+        counts["auto"], counts["resume"] = phase_routing(paths, always, tmp,
+                                                         device, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lines = []
@@ -1035,6 +1261,8 @@ def main() -> int:
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"]
             else "operations",
             "library_ms": None,
+            "launches_auto_near_free": counts["auto"].get(k),
+            "launches_resume": counts["resume"].get(k),
             "path": {"native": "native plane", "python": "Python plane",
                      "library": "library entry (phase 2 only)"}[path]})
     print(json.dumps({"kernels": lines}))

@@ -340,7 +340,10 @@ def test_cli_degrade_writes_goldens(tmp_path, monkeypatch, capsys, name):
     runs the Python plane, writing the goldens (as alignasm_tpu.cli)."""
     paf = tmp_path / f"{name}.paf"
     paf.write_bytes((DATA / f"{name}.paf").read_bytes())
+    # the cuda engine's "auto" routing reaches the native plane through
+    # the exporter or, when its cost model predicts no win, native.run
     monkeypatch.setattr(native, "GraphExporter", _boom)
+    monkeypatch.setattr(native, "run", _boom)
     assert cli.run([str(paf)], device="cpu") == 0
     assert "degrading to the Python plane" in capsys.readouterr().err
     for s in SUFFIXES:

@@ -30,10 +30,10 @@ REPO = Path(__file__).resolve().parent.parent
 DATA = REPO / "tests" / "data"
 CFG = dataclasses.replace(DEFAULT_CONFIG, device_routing="always")
 SUFFIXES = ("", ".alt", ".all")
-# Stats keys of the JAX engine that the port does not write: the cost
-# model waits for the port's calibration, and the data mesh is the JAX
-# engine's over the 8 CPU devices that tests/conftest.py gives it.
-JAX_ONLY = {"cost_model", "data_mesh_devices"}
+# Stats keys of the JAX engine that the port does not write: the data mesh
+# is the JAX engine's over the 8 CPU devices that tests/conftest.py gives
+# it.
+JAX_ONLY = {"data_mesh_devices"}
 
 
 def _outputs(prefix):
@@ -268,7 +268,6 @@ def test_kernel_failure_raises(tmp_path, monkeypatch, failure):
 
 @pytest.mark.parametrize("change,src_paths,needle", [
     (dict(device_max_v=16384), True, "Buckets above V = 8192"),
-    (dict(device_routing="auto"), True, "calibration"),
 ])
 def test_uncovered_configurations_raise(tmp_path, change, src_paths, needle):
     cfg = dataclasses.replace(CFG, **change)
@@ -287,11 +286,12 @@ def test_cuda_request_without_a_card_raises(tmp_path, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing every module of the port and running both its planes on
-    the CPU loads no JAX module and nothing of the JAX package
+    """Importing every module of the port and running both its planes and
+    a resumed run on the CPU loads no JAX module and nothing of the JAX package
     (``alignasm_tpu`` or ``alignasm_tpu.*``)."""
     paf = tmp_path / "s.paf"
     paf.write_bytes((DATA / "synth50.paf").read_bytes())
+    journal = tmp_path / "s.journal"
     code = (
         "import importlib, io, pkgutil, sys\n"
         "import alignasm_tpu_torch as pkg\n"
@@ -302,6 +302,8 @@ def test_port_never_imports_jax(tmp_path):
         "from alignasm_tpu_torch.io.paf import read_paf\n"
         "from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch\n"
         f"assert cli.run([{str(paf)!r}], device='cpu') == 0\n"
+        f"assert cli.run([{str(paf)!r}, '--resume', {str(journal)!r}],\n"
+        "               device='cpu') == 0\n"
         f"solve_dataset_torch(read_paf({str(paf)!r}), DEFAULT_CONFIG,\n"
         "                    device='cpu')\n"
         "assert solve_dataset_torch.last_stats['host_plane'] == 'python'\n"
@@ -322,8 +324,7 @@ NEVER = dataclasses.replace(CFG, device_routing="never")
 def test_never_routing_writes_native_files(tmp_path, name):
     """``device_routing="never"`` with output files runs the fused
     native pipeline: the goldens, the JAX engine's files, and the JAX
-    engine's stats keys but ``cost_model`` (which waits for the port's
-    calibration)."""
+    engine's stats keys, ``cost_model`` among them."""
     from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
 
     paf = DATA / f"{name}.paf"
@@ -333,7 +334,8 @@ def test_never_routing_writes_native_files(tmp_path, name):
                       write_prefix=str(tmp_path / "jax"))
     assert got == _outputs(tmp_path / "jax")
     jstats = solve_dataset_tpu.last_stats
-    assert set(stats) == set(jstats) - {"cost_model"}
+    assert set(stats) == set(jstats)
+    assert set(stats["cost_model"]) == set(jstats["cost_model"])
     assert stats["routed"] == jstats["routed"] == "fused-native"
     for key in ("device", "device_routed_frac", "n_contigs", "n_records"):
         assert stats[key] == jstats[key], key
@@ -341,8 +343,8 @@ def test_never_routing_writes_native_files(tmp_path, name):
 
 def test_never_routing_in_memory_matches_jax_engine():
     """Without output files every contig solves on the exporter's native
-    plane: results equal to the JAX engine's, its stats keys but
-    ``cost_model``, nothing on the device."""
+    plane: results equal to the JAX engine's, its stats keys
+    (``cost_model`` among them), nothing on the device."""
     from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
 
     paths = (str(DATA / "synth_hard.paf"), None)
@@ -351,7 +353,7 @@ def test_never_routing_in_memory_matches_jax_engine():
     want = solve_dataset_tpu(None, NEVER, src_paths=paths)
     jstats = solve_dataset_tpu.last_stats
     assert repr(got) == repr(want)  # a dataclass repr names no module
-    assert set(stats) == set(jstats) - {"cost_model"}
+    assert set(stats) == set(jstats)
     assert stats["routed"] == "native-plane" and stats["device"] == 0
     for key in ("native_direct", "singleton", "oversize", "n_contigs"):
         assert stats[key] == jstats[key], key
@@ -405,7 +407,7 @@ def test_contig_count_mismatch_raises_as_in_jax(routing):
 
 def test_always_stats_keys_contain_jax_engine_keys(tmp_path):
     """With "always" the native plane writes every stats key the JAX
-    engine writes but ``cost_model``: ``device_routed_frac``,
+    engine writes: ``cost_model``, ``device_routed_frac``,
     ``written_natively`` and one ``bucket_phases`` entry (V, contigs,
     sync_s, finish_s) per finished bucket among them."""
     from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
@@ -416,6 +418,7 @@ def test_always_stats_keys_contain_jax_engine_keys(tmp_path):
                       write_prefix=str(tmp_path / "jax"))
     jstats = solve_dataset_tpu.last_stats
     assert set(jstats) - JAX_ONLY <= set(stats), set(jstats) - set(stats)
+    assert set(stats["cost_model"]) == set(jstats["cost_model"])
     assert stats["written_natively"] is True
     assert stats["device_routed_frac"] == jstats["device_routed_frac"] > 0
     phases = stats["bucket_phases"]
@@ -450,7 +453,10 @@ def test_cli_degrade_prints_file_read_complete(tmp_path, monkeypatch, capsys):
 
     paf = tmp_path / "synth50.paf"
     paf.write_bytes((DATA / "synth50.paf").read_bytes())
+    # the cuda engine's "auto" routing reaches the native plane through
+    # the exporter or, when its cost model predicts no win, native.run
     monkeypatch.setattr(tnative, "GraphExporter", boom)
+    monkeypatch.setattr(tnative, "run", boom)
     assert cli.run([str(paf)], device="cpu") == 0
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "File read complete" and out[1] == "Write output PAF file"
