@@ -128,7 +128,7 @@ def solve_dataset_resumable(dataset, cfg, journal_path: str, solve_contig=None,
             outs[i], alt_outs[i], max_outs[i] = o, a, m
 
         if engine == "native":
-            from alignasm_tpu import native
+            from alignasm_tpu_torch import native
 
             if src_paths is None:
                 raise ValueError("native resume needs src_paths")

@@ -44,6 +44,7 @@ import os
 import threading
 import time
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,14 +74,19 @@ def _check_supported(cfg: AlignasmConfig) -> None:
             f"set device_max_v <= {MAX_DEVICE_V}")
 
 
-def _routing(cfg: AlignasmConfig):
-    """The routing decision of the JAX scheduler's solve_dataset_tpu:
-    ``(model, provenance, mode, allow_device)``.  ``"always"`` sends every
-    eligible contig to the device; ``"auto"`` only where the calibrated
-    cost model can predict a win (``any_possible_win``), bucket by bucket
-    (``_device_assist``); anything else, ``"never"`` included, routes
-    every contig to the native plane.  A device route that is not covered
-    raises (``_check_supported``)."""
+class Route(NamedTuple):
+    """The routing decision of the JAX scheduler's solve_dataset_tpu."""
+    allow_device: bool  # may any contig go to the device
+    gate: object  # the cost model that gates each bucket ("auto"), or None
+    cost_model: dict  # stats["cost_model"]: the model and its calibration
+
+
+def _routing(cfg: AlignasmConfig) -> Route:
+    """``"always"`` sends every eligible contig to the device; ``"auto"``
+    only where the calibrated cost model can predict a win
+    (``any_possible_win``), bucket by bucket (``_gate_buckets``); anything
+    else, ``"never"`` included, routes every contig to the native plane.
+    A device route that is not covered raises (``_check_supported``)."""
     from alignasm_tpu_torch.runtime.costmodel import load_model_info
 
     model, model_prov = load_model_info()
@@ -89,14 +95,9 @@ def _routing(cfg: AlignasmConfig):
         mode == "auto" and model.any_possible_win())
     if allow_device:
         _check_supported(cfg)
-    return model, model_prov, mode, allow_device
-
-
-def _cost_model_stats(model, model_prov) -> dict:
-    """``stats["cost_model"]``: the model's summary and which measurement
-    the gate ran on."""
-    return {**model.summary(),
-            "calibration": model_prov or {"source": "defaults"}}
+    return Route(allow_device, model if mode == "auto" else None,
+                 {**model.summary(),
+                  "calibration": model_prov or {"source": "defaults"}})
 
 
 def _device_cap(cfg) -> int:
@@ -366,7 +367,7 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, idx_pool, stats,
 
 
 def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix,
-                         model, mode, model_prov=None):
+                         cost_model):
     """The routing sent the whole corpus away from the device (``"never"``,
     or ``"auto"`` under a cost model that predicts no win) and the caller
     wants output files: the fused native pipeline, as ``--engine native``
@@ -383,9 +384,9 @@ def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix,
     )
     solve_dataset_torch.last_stats = {
         "device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
-        "host_plane": "native", "routing": mode,
+        "host_plane": "native", "routing": cfg.device_routing,
         "routed": "fused-native", "device_routed_frac": 0.0,
-        "cost_model": _cost_model_stats(model, model_prov),
+        "cost_model": cost_model,
         "written_natively": True,
         "read_s": run_stats["read_s"], "solve_s": run_stats["solve_s"],
         "write_s": run_stats["write_s"],
@@ -396,34 +397,82 @@ def _solve_native_routed(cfg: AlignasmConfig, src_paths, write_prefix,
     return (None, None, None)
 
 
-def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
-                        device, allow_device: bool, model, mode,
-                        model_prov=None):
-    """The C++ host plane does parse -> graph build -> wire export ->
-    device-assisted finish -> output writing; Python only orchestrates
-    bucket-shaped launches.  Contigs outside the device envelope
-    (singletons, oversize, over the vertex cap, over the score bound)
-    solve natively on a host thread that overlaps the device wait.
-    Without ``allow_device`` every contig solves natively; under
-    ``mode == "auto"`` the cost ``model`` gates each bucket.  A ``dataset``
-    must hold the file's contigs (AssertionError otherwise, as in the JAX
-    scheduler)."""
-    t_start = time.perf_counter()
-    native.tune_heap()
-    stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
-             "host_plane": "native", "dense_buckets": 0, "native_direct": 0,
-             "routing": mode, "cost_model": _cost_model_stats(model,
-                                                               model_prov)}
-    if allow_device:
-        stats["torch_device"] = str(device)
-    solve_dataset_torch.last_stats = stats
-    exporter = native.GraphExporter(
+def _open_exporter(cfg: AlignasmConfig, src_paths, threads: int = 0):
+    """One parse of the source files by the C++ host plane, keeping every
+    contig the device could take."""
+    return native.GraphExporter(
         src_paths[0], alt_path=src_paths[1],
         alt_baseline=cfg.alt_baseline,
         non_skip_linkable=cfg.non_skip_linkable,
         max_records=max(cfg.max_device_records, _device_cap(cfg)),
-        config=cfg,
+        config=cfg, threads=threads,
     )
+
+
+def _native_stats(cfg: AlignasmConfig, route: Route, device) -> dict:
+    """A native-plane run's stats, published as
+    ``solve_dataset_torch.last_stats`` before the run starts."""
+    stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
+             "host_plane": "native", "dense_buckets": 0, "native_direct": 0,
+             "routing": cfg.device_routing, "cost_model": route.cost_model}
+    if route.allow_device:
+        stats["torch_device"] = str(device)
+    solve_dataset_torch.last_stats = stats
+    return stats
+
+
+def _route_pool(exporter, cfg: AlignasmConfig, meta, pool, stats, device,
+                route: Route, threads: int = 0, format_out: bool = False):
+    """Solve the contigs of ``pool`` (sorted indices into the exporter) as
+    ``route`` says.  With the device allowed, the bucket device pipeline
+    takes the eligible members (``_device_assist``) while the others
+    solve natively on a host thread that overlaps the device wait;
+    without it, every member solves natively here.  A failing native
+    solve is recorded in ``stats["overlap_error"]`` and leaves its
+    contigs without results.
+
+    Returns ``(covered, non_device)``: the indices whose results the
+    device finish stored, and the ones handed to the native solve.  The
+    caller solves what neither left a result for."""
+    eligible = _eligible_mask(meta, cfg) if route.allow_device \
+        else np.zeros(len(meta), bool)
+    non_device = pool[~eligible[pool]]
+    exporter.prepare_results()  # pre-size result slots: the overlap
+    # thread and the finish calls must not race a lazy resize
+
+    def solve_non_device():
+        t1 = time.perf_counter()
+        try:
+            exporter.solve_subset(non_device, threads=threads,
+                                  format_out=format_out)
+        except Exception as exc:  # the caller solves the set again
+            stats["overlap_error"] = repr(exc)[:500]
+        stats["overlap_solve_s"] = round(time.perf_counter() - t1, 4)
+
+    overlap = solve_non_device if len(non_device) else None
+    if not route.allow_device:
+        if overlap is not None:
+            overlap()
+        return np.empty(0, np.int64), non_device
+    covered = _device_assist(exporter, cfg, meta, pool, stats, device,
+                             overlap=overlap, model=route.gate)
+    return covered, non_device
+
+
+def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
+                        device, route: Route):
+    """The C++ host plane does parse -> graph build -> wire export ->
+    device-assisted finish -> output writing; Python only orchestrates
+    bucket-shaped launches (``_route_pool``).  Contigs outside the device
+    envelope (singletons, oversize, over the vertex cap, over the score
+    bound) solve natively on a host thread that overlaps the device wait,
+    and every contig does when the route keeps the device out.  A
+    ``dataset`` must hold the file's contigs (AssertionError otherwise, as
+    in the JAX scheduler)."""
+    t_start = time.perf_counter()
+    native.tune_heap()
+    stats = _native_stats(cfg, route, device)
+    exporter = _open_exporter(cfg, src_paths)
     stats["pack_open_s"] = round(time.perf_counter() - t_start, 4)
     try:
         n = len(exporter)
@@ -437,34 +486,13 @@ def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
         stats["n_records"] = int(n_rec.sum())
         stats["pack_s"] = round(time.perf_counter() - t_start, 4)
 
-        eligible = _eligible_mask(meta, cfg) if allow_device \
-            else np.zeros(n, bool)
-        non_device = np.where(~eligible)[0]
-        exporter.prepare_results()  # pre-size result slots: the overlap
-        # thread and the finish calls must not race a lazy resize
-        if allow_device:
-            overlap = None
-            if len(non_device):
-                def overlap(idx=non_device):
-                    t1 = time.perf_counter()
-                    try:
-                        exporter.solve_subset(idx, format_out=True)
-                    except Exception as exc:  # surfaced via stats
-                        stats["overlap_error"] = repr(exc)[:500]
-                    stats["overlap_solve_s"] = round(
-                        time.perf_counter() - t1, 4)
-
-            _device_assist(exporter, cfg, meta, np.arange(n), stats, device,
-                           overlap=overlap,
-                           model=model if mode == "auto" else None)
-        else:  # routed to the native plane, results in memory
+        _covered, non_device = _route_pool(
+            exporter, cfg, meta, np.arange(n), stats, device, route,
+            format_out=write_prefix is not None)
+        if not route.allow_device:
             stats["routed"] = "native-plane"
-            t0 = time.perf_counter()
-            exporter.solve_subset(non_device,
-                                  format_out=write_prefix is not None)
-            stats["overlap_solve_s"] = round(time.perf_counter() - t0, 4)
-        # leftovers: export-rejected / device-error contigs (and the
-        # overlap set if its thread failed)
+        # leftovers: export-rejected / gated / device-error contigs (and
+        # the non-device set if its native solve failed)
         stats["native_direct"] = exporter.solve_remaining() \
             + len(non_device) - stats["singleton"]
         stats["device_routed_frac"] = round(stats["device"] / n, 4) \
@@ -728,14 +756,13 @@ def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
     package.  Stats land in ``solve_dataset_torch.last_stats``."""
     dev = as_device(device)
     if src_paths is not None:
-        model, model_prov, mode, allow_device = _routing(cfg)
+        route = _routing(cfg)
         try:
-            if not allow_device and write_prefix is not None:
+            if not route.allow_device and write_prefix is not None:
                 return _solve_native_routed(cfg, src_paths, write_prefix,
-                                            model, mode, model_prov)
+                                            route.cost_model)
             return _solve_torch_native(dataset, cfg, src_paths, write_prefix,
-                                       dev, allow_device, model, mode,
-                                       model_prov)
+                                       dev, route)
         except native.NativeError as exc:
             if dataset is None:
                 raise  # no parsed dataset to degrade to
@@ -779,17 +806,10 @@ def solve_missing_torch_native(cfg: AlignasmConfig, src_paths, missing,
     dev = as_device(device)
     t_start = time.perf_counter()
     native.tune_heap()
-    stats = {"device": 0, "fallback": 0, "singleton": 0, "oversize": 0,
-             "host_plane": "native", "dense_buckets": 0, "native_direct": 0}
-    solve_dataset_torch.last_stats = stats
     missing = np.ascontiguousarray(np.sort(np.asarray(missing, np.int64)))
-    exporter = native.GraphExporter(
-        src_paths[0], alt_path=src_paths[1],
-        alt_baseline=cfg.alt_baseline,
-        non_skip_linkable=cfg.non_skip_linkable,
-        max_records=max(cfg.max_device_records, _device_cap(cfg)),
-        config=cfg, threads=threads,
-    )
+    route = _routing(cfg)
+    stats = _native_stats(cfg, route, dev)
+    exporter = _open_exporter(cfg, src_paths, threads)
     try:
         meta = exporter.meta_bulk()
         stats["n_contigs_file"] = len(meta)
@@ -799,37 +819,16 @@ def solve_missing_torch_native(cfg: AlignasmConfig, src_paths, missing,
             raise RuntimeError(
                 f"native parse found {len(meta)} contigs but the caller "
                 f"expects {expected_n}: src_paths does not match dataset")
-        model, model_prov, mode, allow_device = _routing(cfg)
-        stats["routing"] = mode
-        stats["cost_model"] = _cost_model_stats(model, model_prov)
-        if allow_device:
-            stats["torch_device"] = str(dev)
-        eligible = _eligible_mask(meta, cfg) if allow_device \
-            else np.zeros(len(meta), bool)
-        non_device = missing[~eligible[missing]]
-        exporter.prepare_results()
-        overlap = None
-        if len(non_device):
-            def overlap(idx=non_device):
-                t1 = time.perf_counter()
-                try:
-                    exporter.solve_subset(idx, threads=threads)
-                except Exception as exc:  # surfaced via stats
-                    stats["overlap_error"] = repr(exc)[:500]
-                stats["overlap_solve_s"] = round(time.perf_counter() - t1, 4)
-
-        if allow_device:
-            covered = _device_assist(exporter, cfg, meta, missing, stats, dev,
-                                     overlap=overlap,
-                                     model=model if mode == "auto" else None)
-        else:
-            covered = np.empty(0, np.int64)
-            if overlap is not None:
-                overlap()
-        leftover = np.setdiff1d(missing, np.concatenate([covered, non_device]))
+        covered, non_device = _route_pool(exporter, cfg, meta, missing,
+                                          stats, dev, route, threads=threads)
+        # the device's leftovers, and the non-device set again when its
+        # native solve failed: no contig may reach the journal unsolved
+        solved = covered if "overlap_error" in stats \
+            else np.concatenate([covered, non_device])
+        leftover = np.setdiff1d(missing, solved)
         if len(leftover):
             exporter.solve_subset(leftover, threads=threads)
-        stats["native_direct"] = int(len(non_device) + len(leftover))
+        stats["native_direct"] = int(len(missing) - len(covered))
         if put_chunk is not None:
             for lo in range(0, len(missing), chunk):
                 part = missing[lo:lo + chunk]

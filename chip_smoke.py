@@ -90,7 +90,8 @@ and the blocked solve need (the same cells); ``library_ms``
 null: no single PyTorch call
 computes any of these functions), the card line again and, as the last
 line, ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
-without that line.  Imports no JAX and nothing of the JAX package.
+without that line.  Imports no JAX and nothing of the JAX package, and
+fails if any phase loaded one of their modules.
 """
 
 from __future__ import annotations
@@ -1246,6 +1247,10 @@ def main() -> int:
                                                          device, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    loaded = sorted(m for m in sys.modules if m in ("jax", "alignasm_tpu")
+                    or m.startswith(("jax.", "alignasm_tpu.")))
+    if loaded:
+        fail(f"a phase loaded JAX or the JAX package: {loaded}")
     lines = []
     for k, (src, rep, path) in KERNELS.items():
         if results[k]["ms"] <= 0:

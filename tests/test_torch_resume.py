@@ -13,6 +13,7 @@ machine without JAX (``python -m pytest tests/test_torch_resume.py
 --noconftest -q -m gpu``).  Outputs are compared byte for byte.
 """
 
+import dataclasses
 import json
 import os
 import pickle
@@ -136,6 +137,42 @@ def test_resume_half_journal_writes_goldens(tmp_path, monkeypatch, engine,
     assert _journal_len(journal) == 50
 
 
+@pytest.mark.parametrize("cal", [{}, LAUNCH_ALL], ids=["no-win",
+                                                       "launch-all"])
+def test_failed_native_solve_of_the_missing_is_solved_again(
+        tmp_path, monkeypatch, cal):
+    """When the native solve of the non-device members fails (on the
+    overlap thread beside the device, or alone when nothing goes to the
+    device), ``solve_missing_torch_native`` solves them again before any
+    of them reaches the journal: the files are the goldens.  The contigs
+    over 24 vertices are kept off the device, so both solves have work."""
+    _calibrate_with(tmp_path, monkeypatch, cal)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, device_max_v=24)
+    real = native.GraphExporter.solve_subset
+    calls = []
+
+    def first_fails(self, idx, *args, **kwargs):
+        calls.append(len(idx))
+        if len(calls) == 1:
+            raise native.NativeError("injected")
+        return real(self, idx, *args, **kwargs)
+
+    paf = DATA / "synth50.paf"
+    journal = tmp_path / "j.journal"
+    dataset = _half_journal(paf, journal, cfg)
+    monkeypatch.setattr(native.GraphExporter, "solve_subset", first_fails)
+    *results, _stats = solve_dataset_resumable(
+        dataset, cfg, str(journal), engine="cuda",
+        src_paths=(str(paf), None), device="cpu")
+    stats = solve_dataset_torch.last_stats
+    assert "injected" in stats["overlap_error"]
+    assert len(calls) == 2 and calls[1] >= calls[0] > 0
+    assert (stats["device"] > 0) == bool(cal)
+    _write(dataset, results, tmp_path / "port")
+    assert _outputs(tmp_path / "port") == _outputs(DATA / "synth50")
+    assert _journal_len(journal) == 50
+
+
 def test_expected_n_mismatch_raises_before_any_journal_write(tmp_path):
     """A source file that does not describe the dataset raises before a
     single result is stored, in the resume path and in
@@ -187,6 +224,8 @@ def test_checkpoint_copy_differs_only_in_its_listed_edits():
         ('"""Per-contig checkpoint/resume.\n',
          '"""Per-contig checkpoint/resume.\n\n'
          + checkpoint.__doc__.split("\n\n")[1] + "\n"),
+        ("from alignasm_tpu import native",
+         "from alignasm_tpu_torch import native"),
         ("chunk: int = 512, threads: int = 0):",
          "chunk: int = 512, threads: int = 0,\n"
          "                            device=\"cuda\"):"),

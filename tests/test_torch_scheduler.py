@@ -304,6 +304,8 @@ def test_port_never_imports_jax(tmp_path):
         f"assert cli.run([{str(paf)!r}], device='cpu') == 0\n"
         f"assert cli.run([{str(paf)!r}, '--resume', {str(journal)!r}],\n"
         "               device='cpu') == 0\n"
+        f"assert cli.run([{str(paf)!r}, '--engine', 'native', '--resume',\n"
+        f"                {str(journal)!r} + '.native']) == 0\n"
         f"solve_dataset_torch(read_paf({str(paf)!r}), DEFAULT_CONFIG,\n"
         "                    device='cpu')\n"
         "assert solve_dataset_torch.last_stats['host_plane'] == 'python'\n"
