@@ -20,26 +20,17 @@
 // row can be solved only after its successors, so a contig costs its rows'
 // latency, not its bytes.
 //
-// Design: a checked pass that replays the Jacobi loops without sweeping.
-// Write the distance update as u(t) = F(u(t-1), S(t-1)), S the states of
-// u's successors.  The minima (m1, m2, m3) and the winning edge depend on S
-// alone and a row takes the winner's candidate only when it is better, so
-// F(F(x, S), S) = F(x, S): u can change at sweep t only when t = 1 or a
-// successor changed at sweep t-1.  In reverse topological order each
-// vertex's change history (sweep, s, a, nz, tot) therefore follows from its
-// successors' histories alone: the row evaluates F at sweep 1 and at each
-// sweep after a successor's change, up to n_sweeps, reading each
-// successor's latest state before that sweep, and appends an entry when its
-// (s, a, nz, tot) changes (its own rank and winning edge stay in
-// registers).  That is exact at any n_sweeps, ties and the non-monotone
-// mediant included.  Before the first sweep after some successor is
-// reached every candidate is INF and F keeps the initial state, so the
-// row starts there (a chain's row then evaluates once).  The floor and the counts are monotone and cannot wrap
-// (the floor sums int32 anomalies along fewer than 8192 edges, a count is
-// at most COUNT_SAT times the degree), so, as in topo_pass.cuh, one pass
-// over the successors' final values equals their n_sweeps loops once the
-// longest path L <= n_sweeps; the same row computes them.  Per contig the
-// pass checks:
+// Design: a checked pass that replays the Jacobi loops without sweeping,
+// the distance of each row by csrc/replay.cuh's replay_row (why one pass
+// is exact at any n_sweeps, ties and the non-monotone mediant included, is
+// written there; csrc/shard_relax.cu runs the same row on the graph axis).
+// Its Rule here picks the winner as the lowest edge index among the
+// reached edges whose erank equals m3.  The floor and the counts are
+// monotone and cannot wrap (the floor sums int32 anomalies along fewer
+// than 8192 edges, a count is at most COUNT_SAT times the degree), so, as
+// in topo_pass.cuh, one pass over the successors' final values equals
+// their n_sweeps loops once the longest path L <= n_sweeps; the same row
+// computes them.  Per contig the pass checks:
 //   (a) the host's hint (order[t] = the vertex at position t; null: the
 //       identity) is a permutation of 0..V-1, every valid edge lies in
 //       [0, V)^2, and every valid edge (u, v) has pos[v] > pos[u], or v is
@@ -63,24 +54,13 @@
 // CSR, copying each edge's fields into the workspace in CSR order (a row
 // reads no device memory); an invalid edge only flags its tail, whose
 // three minima then start at INF (the padding edge feeds them INF in JAX).
-// A row folds its edges in one pass into the literal m1, m2 over the
-// m1-achievers and m3 over the m2-achievers (Fold; the mapq key, a 64-bit
-// division, only where a comparison needs its value), picks the winner as
-// the lowest edge index among the reached edges whose erank equals m3, and
-// keeps every sum, shift and pack on uint64_t (the JAX and PyTorch int64
-// arithmetic wraps, signed overflow in C++ does not).  Each edge keeps a
-// cursor into its head's history across the row's evaluations.  What a
-// row costs is its chain of dependent instructions (PERF.md has the
+// What a row costs is its chain of dependent instructions (PERF.md has the
 // cycles a row by phase).  One warp steps the rows in reverse hint order
 // twice: first each vertex's longest path (int32, for (b) and (c)), then
-// the rows, its lanes over a row's edges (each lane looks its head up and
-// computes the candidate, the fold runs on the shuffled candidates); a
-// row of at most one edge runs in every lane alike, without shuffles.
-// The history is a list per vertex in a pool with one cursor.  The
-// workspace (pool, per-vertex
-// vectors, CSR) lives in shared memory when it fits one CTA's (kSmemOne),
-// the pool taking what two CTAs an SM (kSmemTwo), or else one, leave; else
-// a global workspace.
+// the rows (replay_row, then the floor and the counts).  The workspace
+// (pool, per-vertex vectors, CSR) lives in shared memory when it fits one
+// CTA's (kSmemOne), the pool taking what two CTAs an SM (kSmemTwo), or
+// else one, leave; else a global workspace.
 //
 // Jacobi branch: one CTA per flagged contig, the literal loops.  Its
 // threads build the same CSR, then each sweep gives each thread whole
@@ -94,14 +74,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "replay.cuh"
+
 namespace {
 
-constexpr int64_t kInf = int64_t(1) << 62;  // ops/relax.py INF
-constexpr int64_t kSegMax = INT64_MAX;      // segment_min of no element
+using namespace replay;
+
 constexpr int64_t kCountSat = 10001;
-constexpr int kAnomBits = 16;
-constexpr int kQulBits = 30;
-constexpr int64_t kQulOne = int64_t(1) << kQulBits;
 constexpr int kMaxV = 8192;
 constexpr int kThreads = 256;      // the Jacobi branch
 constexpr int kPassThreads = 128;  // the pass
@@ -112,41 +91,6 @@ constexpr int64_t kSmemBytes = 96 * 1024;
 constexpr int64_t kSmemTwo = 113 * 1024 - 64;
 constexpr int64_t kSmemOne = 227 * 1024 - 64;
 constexpr int kPool = 4;                  // least history entries a vertex
-constexpr int32_t kNoTime = 0x7fffffff;   // no further change
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int64_t add64(int64_t x, int64_t y) {
-  return (int64_t)((uint64_t)x + (uint64_t)y);
-}
-
-__device__ __forceinline__ int64_t min64(int64_t x, int64_t y) {
-  return x < y ? x : y;
-}
-
-__device__ __forceinline__ int64_t pack_k1(int64_t s, int64_t a) {
-  return (int64_t)(((uint64_t)s << kAnomBits) | (uint64_t)a);
-}
-
-// Floor division, as torch.div(rounding_mode="floor") and jnp's //.  Both
-// operands below 2^52 are exact in double, and the correctly rounded
-// quotient is then within 1/2 of x / y: one correction step gives the floor.
-__device__ __forceinline__ int64_t floor_div(int64_t x, int64_t y) {
-  constexpr int64_t kExact = int64_t(1) << 52;
-  if (x >= 0 && x < kExact && y > 0 && y < kExact) {
-    const int64_t q = (int64_t)((double)x / (double)y);
-    const int64_t r = x - q * y;
-    return r < 0 ? q - 1 : (r >= y ? q + 1 : q);
-  }
-  if (y == -1) return (int64_t)(0 - (uint64_t)x);
-  const int64_t q = x / y;
-  return (x % y != 0 && ((x < 0) != (y < 0))) ? q - 1 : q;
-}
-
-__device__ __forceinline__ int64_t qul_key(int64_t nz, int64_t tot) {
-  const int64_t num = (int64_t)((uint64_t)nz << kQulBits);
-  return (int64_t)((uint64_t)kQulOne -
-                   (uint64_t)floor_div(num, tot == 0 ? 1 : tot));
-}
 
 // Exclusive scan of n int32 counts in place, by the 32 lanes of warp 0, a
 // chunk a lane.
@@ -238,293 +182,103 @@ __device__ Pass pass_at(int64_t* base, int32_t V, int64_t E, int64_t P) {
   return w;
 }
 
-// What a row reads: the contig's workspace, and its outputs.
+// What a row reads: the contig's workspace, its view for replay_row, and
+// its outputs.
 struct Ctx {
   Pass w;
-  int32_t V, dest, limit, cap;
-  int* cursor;
+  Hist<int32_t> h;
   int64_t* out;  // the contig's d_s; the other outputs BV apart
   int64_t BV;
   int32_t* out_eid;
 };
 
-// The visible state of a vertex: what its predecessors' candidates read.
-struct St {
-  int64_t s, a, nz, tot;
-};
-
-__device__ __forceinline__ St init_state(int32_t v, int32_t dest) {
-  return St{v == dest ? 0 : kInf, 0, 0, 0};
+__device__ Hist<int32_t> hist_of(const Pass& w, int* cursor, int32_t cap,
+                                 int32_t dest, int32_t limit) {
+  Hist<int32_t> h;
+  h.ev = w.ev;
+  h.ea = w.ea;
+  h.enz = w.enz;
+  h.etot = w.etot;
+  h.inv = w.inv;
+  h.es = w.es;
+  h.erank = w.erank;
+  h.cp = w.cp;
+  h.hnext = w.hnext;
+  h.head = w.head;
+  h.cok = w.cok;
+  h.htime = w.htime;
+  h.hs = w.hs;
+  h.ha = w.ha;
+  h.hnz = w.hnz;
+  h.htot = w.htot;
+  h.cursor = cursor;
+  h.cap = cap;
+  h.dest = dest;
+  h.limit = limit;
+  return h;
 }
 
-// Vertex v's state at pool entry p (-1: its initial state).
-__device__ __forceinline__ St state_of(const Ctx& c, int32_t v, int32_t p) {
-  if (p < 0) return init_state(v, c.dest);
-  return St{c.w.hs[p], c.w.ha[p], c.w.hnz[p], c.w.htot[p]};
-}
+// replay_row's Rule here: the floor and the walk count from the
+// successors' final values, folded as the row starts, and the winner, the
+// lowest edge index among the reached edges whose erank equals m3.
+struct Row64 {
+  const Pass& w;
+  int64_t fm = kInf, cts = 0;
+  int32_t eid = -1;
 
-// The candidate of the edge at CSR slot k through a head in state v.
-__device__ __forceinline__ St cand_of(const Pass& w, int32_t k, const St& v) {
-  return St{add64(v.s, w.es[k]), add64(v.a, w.ea[k]), add64(v.nz, w.enz[k]),
-            add64(v.tot, w.etot[k])};
-}
+  __device__ explicit Row64(const Pass& pw) : w(pw) {}
 
-// A mapq key below INF without dividing: nz in [0, 2^33) and tot > 0 make
-// nz << 30 a non-negative int64, so the key is at most QUL_ONE.
-__device__ __forceinline__ bool key_below_inf(int64_t nz, int64_t tot) {
-  return nz >= 0 && nz < (int64_t(1) << 33) && tot > 0;
-}
-
-// The literal minima of one sweep at a row, in one pass over its edges in
-// any order: m1 over every edge (INF for an unreached one), m2 over the
-// m1-achievers, m3 over the m2-achievers, each a segment min that every
-// other edge of the row feeds INF, seeded with the identity (INF when an
-// invalid edge leaves the vertex, else INT64_MAX).  x1: an edge off m1;
-// a1 / b1: the least k2 among the m1-achievers and the least erank among
-// those at a1; y1: an m1-achiever above a1.  a1 is kept as its (nz, tot)
-// and divided out only when a comparison needs its value (a second
-// m1-achiever, or a tie with the incumbent's k1): a row that improves
-// k1 never divides.
-struct Fold {
-  int64_t ident, m1, a1, anz, atot, b1;
-  bool aval, seen, x1, any1, y1;
-
-  __device__ explicit Fold(int64_t id)
-      : ident(id), m1(id), a1(kSegMax), anz(0), atot(0), b1(kSegMax),
-        aval(true), seen(false), x1(false), any1(false), y1(false) {}
-
-  __device__ __forceinline__ int64_t a1_value() {
-    if (!aval) {
-      a1 = qul_key(anz, atot);
-      aval = true;
-    }
-    return a1;
+  __device__ __forceinline__ void edge(int32_t k, int32_t v) {
+    const int64_t fv = w.fa[v];
+    fm = min64(fm, fv < kInf ? add64(fv, w.ea[k]) : kInf);
+    cts = add64(cts, w.ct[v]);
   }
 
-  __device__ __forceinline__ void take(int64_t nz, int64_t tot, int64_t r) {
-    anz = nz;
-    atot = tot;
-    aval = false;
-    b1 = r;
-  }
-
-  __device__ __forceinline__ void push(bool ok, int64_t k1, int64_t nz,
-                                       int64_t tot, int64_t r) {
-    const int64_t c1 = ok ? k1 : kInf;
-    if (c1 < m1) {  // the edges before are off m1 now
-      x1 = seen || !ok;
-      m1 = c1;
-      any1 = ok;
-      y1 = false;
-      if (ok) {
-        take(nz, tot, r);
-      } else {
-        a1 = b1 = kSegMax;
-        aval = true;
-      }
-    } else if (c1 == m1 && ok) {
-      if (!any1) {
-        any1 = true;
-        take(nz, tot, r);
-      } else {
-        const int64_t k2 = qul_key(nz, tot), a = a1_value();
-        if (k2 < a) {
-          y1 = true;
-          take(nz, tot, r);
-          a1 = k2;
-          aval = true;
-        } else if (k2 == a) {
-          b1 = min64(b1, r);
-        } else {
-          y1 = true;
-        }
+  template <int G>
+  __device__ __forceinline__ bool pick(const Hist<int32_t>& h, int32_t lo,
+                                       int32_t n, int lane, Fold&, int64_t,
+                                       int64_t m3, const St& one, bool one_ok,
+                                       St& nx, int64_t& nr) {
+    int32_t mine = kNoTime, k = kNoTime;  // and its CSR slot
+    if (G == 1 && n == 1) {  // the fold's own candidate
+      if (one_ok && w.erank[lo] == m3) {
+        mine = w.eidx[lo];
+        k = lo;
       }
     } else {
-      x1 = true;
+      for (int32_t j = lane; j < n; j += G) {
+        const int32_t e = w.eidx[lo + j];
+        if (w.cok[lo + j] && w.erank[lo + j] == m3 && e < mine) {
+          mine = e;
+          k = lo + j;
+        }
+      }
     }
-    seen = true;
-  }
-
-  // m1 and m3; m2 comes from m2_value(), only when needed.
-  __device__ __forceinline__ void mins(int64_t& o1, int64_t& o3) {
-    if (!seen) {
-      o1 = o3 = ident;
-      return;
-    }
-    o1 = m1;
-    if (any1 && a1_is_m2())
-      o3 = min64(min64(ident, x1 || y1 ? kInf : kSegMax), b1);
-    else
-      o3 = min64(ident, kInf);
-  }
-
-  __device__ __forceinline__ int64_t floor2() const {
-    return min64(ident, x1 ? kInf : kSegMax);
-  }
-
-  // a1 == m2 (any1): a1 below INF is below floor2, which is at least INF.
-  __device__ __forceinline__ bool a1_is_m2() {
-    if (!aval && key_below_inf(anz, atot)) return true;
-    return a1_value() <= floor2();
-  }
-
-  __device__ __forceinline__ int64_t m2_value() {
-    if (!seen) return ident;
-    return min64(floor2(), any1 ? a1_value() : kSegMax);
+    const int32_t win = group_min32<G>(mine);
+    k = group_min32<G>(mine == win ? k : kNoTime);
+    if (win == kNoTime) return false;
+    nx = G == 1 && n == 1 ? one : cached_cand(h, k);
+    nr = w.erank[k];
+    eid = win;
+    return true;
   }
 };
-
-template <int G>
-__device__ __forceinline__ int64_t group_min(int64_t x) {
-  if constexpr (G > 1)
-    for (int o = 16; o; o >>= 1) x = min64(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-template <int G>
-__device__ __forceinline__ int64_t group_sum(int64_t x) {
-  if constexpr (G > 1)
-    for (int o = 16; o; o >>= 1) x = add64(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-template <int G>
-__device__ __forceinline__ int32_t group_min32(int32_t x) {
-  if constexpr (G > 1) x = __reduce_min_sync(kFull, x);
-  return x;
-}
-
-// Appends u's entry of sweep t (the warp's lane 0 alone); an entry past the
-// pool is dropped, and the cursor past the capacity fails check (d).
-__device__ __forceinline__ void append(const Ctx& c, int32_t u, int32_t t,
-                                       const St& x, int32_t& tail) {
-  const int32_t i = atomicAdd(c.cursor, 1);
-  if (i >= c.cap) return;
-  c.w.hs[i] = x.s;
-  c.w.ha[i] = x.a;
-  c.w.hnz[i] = x.nz;
-  c.w.htot[i] = x.tot;
-  c.w.htime[i] = t;
-  c.w.hnext[i] = -1;
-  if (tail < 0)
-    c.w.head[u] = i;
-  else
-    c.w.hnext[tail] = i;
-  tail = i;
-}
 
 // Row u, by a group of G threads (the warp, or G = 1 in every lane alike
 // for a row of at most one edge, the leader alone writing): its distance
-// history, then its floor and counts from the successors' final values.
+// history (replay_row), then its floor and counts from the successors'
+// final values.
 template <int G>
 __device__ __forceinline__ void solve_row(const Ctx& c, int32_t u,
                                           bool leader) {
   const int lane = G == 1 ? 0 : (int)(threadIdx.x & 31);
   const Pass& w = c.w;
   const int32_t lo = w.start[u], n = w.start[u + 1] - lo;
-  const bool is_dest = u == c.dest;
-  St x = init_state(u, c.dest);
-  int64_t rank = is_dest ? -1 : kInf;  // x's rank
-  int32_t eid = -1, tail = -1;
-  const int64_t ident = w.inv[u] ? kInf : kSegMax;
-  // Before the first sweep after a successor is reached every candidate is
-  // INF and the row keeps its initial state: start there.  The same loop
-  // takes the floor and the walk count from the successors' final values
-  // (the count of min walks waits for the row's final distance).
-  int32_t t0 = kNoTime;
-  int64_t fm = kInf, cts = 0;
-  for (int32_t j = lane; j < n; j += G) {
-    const int32_t k = lo + j, v = w.ev[k];
-    int32_t q = init_state(v, c.dest).s < kInf ? -2 : w.head[v];
-    while (q >= 0 && w.hs[q] >= kInf) q = w.hnext[q];
-    if (q != -1) t0 = min(t0, q == -2 ? 1 : w.htime[q] + 1);
-    w.cp[k] = -1;
-    const int64_t fv = w.fa[v];
-    fm = min64(fm, fv < kInf ? add64(fv, w.ea[k]) : kInf);
-    cts = add64(cts, w.ct[v]);
-  }
-  St one{};  // a one-edge row's candidate at its last evaluation (G = 1)
-  bool one_ok = false;
-  for (int32_t t = group_min32<G>(t0); t <= c.limit;) {
-    Fold f(ident);
-    int32_t nxt = kNoTime;
-    for (int32_t j0 = 0; j0 < n; j0 += G) {
-      const int32_t j = j0 + lane;
-      bool ok = false;
-      int64_t k1 = 0, nz = 0, tot = 0, r = 0;
-      if (j < n) {  // the head's latest entry before sweep t, from the cache
-        const int32_t k = lo + j, v = w.ev[k];
-        int32_t p = w.cp[k], q = p < 0 ? w.head[v] : w.hnext[p];
-        while (q >= 0 && w.htime[q] < t) {
-          p = q;
-          q = w.hnext[q];
-        }
-        nxt = min(nxt, q >= 0 ? w.htime[q] + 1 : kNoTime);
-        const St sv = state_of(c, v, p), cd = cand_of(w, k, sv);
-        ok = sv.s < kInf;
-        one = cd;
-        one_ok = ok;
-        k1 = pack_k1(cd.s, cd.a);
-        nz = cd.nz;
-        tot = cd.tot;
-        r = w.erank[k];
-        w.cp[k] = p;
-        w.cok[k] = ok;
-      }
-      if constexpr (G == 1) {
-        f.push(ok, k1, nz, tot, r);
-      } else {
-        const int m = min(G, n - j0);
-        for (int k = 0; k < m; ++k)
-          f.push(__shfl_sync(kFull, (int)ok, k) != 0,
-                 __shfl_sync(kFull, k1, k), __shfl_sync(kFull, nz, k),
-                 __shfl_sync(kFull, tot, k), __shfl_sync(kFull, r, k));
-      }
-    }
-    nxt = group_min32<G>(nxt);
-    int64_t m1, m3;
-    f.mins(m1, m3);
-    const int64_t cur1 = x.s < kInf ? pack_k1(x.s, x.a) : kInf;
-    bool better = m1 < cur1;
-    if (m1 == cur1) {  // ties on k1: the mapq keys decide
-      const int64_t m2 = f.m2_value(), k2x = qul_key(x.nz, x.tot);
-      better = m2 < k2x || (m2 == k2x && m3 < rank);
-    }
-    if (better) {
-      if constexpr (G > 1) __syncwarp();  // the lanes' cache entries
-      // the lowest edge index among the reached edges whose erank is m3
-      int32_t mine = kNoTime, k = kNoTime;  // and its CSR slot
-      if (G == 1 && n == 1) {  // the fold's own candidate
-        if (one_ok && w.erank[lo] == m3) {
-          mine = w.eidx[lo];
-          k = lo;
-        }
-      } else {
-        for (int32_t j = lane; j < n; j += G) {
-          const int32_t e = w.eidx[lo + j];
-          if (w.cok[lo + j] && w.erank[lo + j] == m3 && e < mine) {
-            mine = e;
-            k = lo + j;
-          }
-        }
-      }
-      const int32_t win = group_min32<G>(mine);
-      k = group_min32<G>(mine == win ? k : kNoTime);
-      if (win != kNoTime) {
-        const St nx = G == 1 && n == 1
-                          ? one
-                          : cand_of(w, k, state_of(c, w.ev[k], w.cp[k]));
-        if (leader && (nx.s != x.s || nx.a != x.a || nx.nz != x.nz ||
-                       nx.tot != x.tot))
-          append(c, u, t, nx, tail);
-        x = nx;
-        rank = w.erank[k];
-        eid = win;
-      }
-      if constexpr (G > 1) __syncwarp();  // read before the next fold writes
-    }
-    t = nxt;
-  }
+  const bool is_dest = u == c.h.dest;
+  Row64 row(w);
+  int64_t rank;
+  int32_t tail;
+  const St x = replay_row<G>(c.h, u, lo, n, lane, leader, row, rank, tail);
 
   // the count of min walks over the successors' final values
   const int64_t du = x.s < kInf ? pack_k1(x.s, x.a) : kInf;
@@ -533,13 +287,13 @@ __device__ __forceinline__ void solve_row(const Ctx& c, int32_t u,
     const int32_t k = lo + j, v = w.ev[k];
     const int32_t lv = w.last[v];
     const St sv = lv >= 0 ? St{w.hs[lv], w.ha[lv], 0, 0}
-                          : init_state(v, c.dest);
+                          : init_state(v, c.h.dest);
     if (sv.s < kInf &&
         pack_k1(add64(sv.s, w.es[k]), add64(sv.a, w.ea[k])) == du)
       cms = add64(cms, w.cm[v]);
   }
-  fm = group_min<G>(fm);
-  cts = group_sum<G>(cts);
+  const int64_t fm = group_min<G>(row.fm);
+  const int64_t cts = group_sum<G>(row.cts);
   cms = group_sum<G>(cms);
   if (leader) {
     const int64_t fa = min64(is_dest ? 0 : kInf, fm);
@@ -557,7 +311,7 @@ __device__ __forceinline__ void solve_row(const Ctx& c, int32_t u,
     o[4 * c.BV] = fa;
     o[5 * c.BV] = ct;
     o[6 * c.BV] = cm;
-    c.out_eid[u] = eid;
+    c.out_eid[u] = row.eid;
   }
 }
 
@@ -596,11 +350,8 @@ relax64_pass_kernel(const int32_t* __restrict__ eu_all,
   Ctx c;
   c.w = pass_at(work ? work + b * (pass_bytes(V, E, cap) / 8) : sm, V, E,
                 cap);
-  c.V = V;
-  c.dest = dest;
-  c.limit = min(n_sweeps, V + 1);  // no change comes after sweep L + 1
-  c.cap = cap;
-  c.cursor = &cursor;
+  // no change comes after sweep L + 1
+  c.h = hist_of(c.w, &cursor, cap, dest, min(n_sweeps, V + 1));
   c.out = out + b * V;
   c.BV = B * V;
   c.out_eid = out_eid + b * V;
@@ -720,8 +471,8 @@ relax64_pass_kernel(const int32_t* __restrict__ eu_all,
       solve_row<1>(c, u, lane == 0);
     __syncwarp();
   }
-  if (lane == 0 && (cursor > c.cap || top > n_sweeps))
-    to_branch(flags, jacobi, b, cursor > c.cap ? 1 : 2);
+  if (lane == 0 && (cursor > cap || top > n_sweeps))
+    to_branch(flags, jacobi, b, cursor > cap ? 1 : 2);
 }
 
 // ----------------------------------------------------------------------

@@ -114,8 +114,13 @@ def _bind(lib) -> None:
                                 i32, i32, p, p, p, p, p, p]
     lib.aln_relax64_work_words.argtypes = [i32, i64]
     lib.aln_relax64_work_words.restype = ctypes.c_int64
-    lib.aln_shard_relax.argtypes = [p, i32, i32, i64, p]
-    for fn in (lib.aln_shard_relax, lib.aln_densify_scatter, lib.aln_densify_wire,
+    lib.aln_shard_relax.argtypes = [p, i32, i32, i64, p, p, p, p]
+    lib.aln_shard_pass.argtypes = [i32, p, p, p, p, p, p, p, p, p, i32, i64,
+                                   i32, i64, i64, p, p, p, p]
+    lib.aln_shard_pass_work_words.argtypes = [i32, i64, i64]
+    lib.aln_shard_pass_work_words.restype = ctypes.c_int64
+    for fn in (lib.aln_shard_relax, lib.aln_shard_pass,
+               lib.aln_densify_scatter, lib.aln_densify_wire,
                lib.aln_densify_wire16,
                lib.aln_topo_scan_nxt8, lib.aln_blocked_dp_nxt16,
                lib.aln_blocked_dp_scratch_words, lib.aln_sweep_dense,

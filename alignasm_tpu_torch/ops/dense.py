@@ -1,6 +1,6 @@
 """Device solve of the native exporter's wires: densify, then the
 reverse-topo scan (V <= 256, uint8 gate rows) or the blocked tropical
-solve (256 < V <= 8192, int16 gate rows); and the Python plane's dense
+solve (256 < V <= 16384, int16 gate rows); and the Python plane's dense
 sweep solve (``dense_solve_batch``, ``dense_solve_slabs``).
 
 PyTorch counterpart of ``alignasm_tpu/ops/dense.py``.

@@ -9,14 +9,14 @@ port's copy of the JAX package's) parses the PAF, builds each contig's
 DAG and exports one sparse wire per bucket; the device densifies the wire and runs one
 reverse-topological scan per contig for buckets with V <= 256 (uint8 gate
 rows ``[nxt, fast, src]``) or the blocked tropical solve for 256 < V <=
-8192 (the same rows in int16) (ops/dense.py); ``finish_bulk8`` /
+16384 (the same rows in int16) (ops/dense.py); ``finish_bulk8`` /
 ``finish_bulk16`` chase each path in C++ and ``write_results`` writes the
 three PAF files.  The device only decides
 which contigs take the fast finish, so the files are byte-identical to the
 native engine's whatever it answers.  A host-plane failure (wire export,
 finish) degrades the affected contigs to the native solve with the reason
 in ``stats["device_error"]``; a kernel that fails to build, launch or run
-raises.  It covers buckets with V <= 8192.  On a mesh of several devices
+raises.  It covers buckets with V <= 16384.  On a mesh of several devices
 (parallel/mesh.py) a V <= 256 bucket ships the fixed-width wire and
 shards its contigs over the mesh (the data axis), larger ones stay on the
 mesh's first device, and a contig over both ``max_device_records`` and
@@ -67,18 +67,21 @@ from alignasm_tpu_torch.ops.wire import ragged_to_device, wire16_to_device
 from alignasm_tpu_torch.parallel.mesh import as_mesh, gather, launch_sharded
 
 MAX_V = 256  # the scan and uint8 gate rows; above it the blocked solve
-MAX_DEVICE_V = 8192  # a V = 16384 slab is 1 GB of int32 per contig
+# A V = 16384 bucket holds one contig (_dense_buckets), a 1.07 GB slab.
+# Above it the ragged wire's int32 flat index (native/__init__.py,
+# trash + M < 2**31) cannot address a V = 32768 slab.
+MAX_DEVICE_V = 16384
 
 
 def _check_supported(cfg: AlignasmConfig) -> None:
     """Raise NotImplementedError for a device route the native plane does
-    not cover yet, naming the ROADMAP.md item that will."""
+    not cover, with the reason."""
     if cfg.device_max_v > MAX_DEVICE_V:
         raise NotImplementedError(
-            f"device_max_v={cfg.device_max_v} > {MAX_DEVICE_V}: a bucket "
-            "of V = 16384 holds 1 GB of slab per contig and no corpus of "
-            "the repo reaches it (ROADMAP.md: 'Buckets above V = 8192'); "
-            f"set device_max_v <= {MAX_DEVICE_V}")
+            f"device_max_v={cfg.device_max_v} > {MAX_DEVICE_V}: the ragged "
+            "wire's int32 flat index cannot address a slab of V = 32768 "
+            "(the JAX engine cannot run it either); set device_max_v <= "
+            f"{MAX_DEVICE_V}")
 
 
 class Route(NamedTuple):

@@ -17,7 +17,9 @@ Run from the root of a checkout, on a machine with a CUDA device:
    timed beside it: the card's write floor), the scan on V <= 256, the blocked solve on V > 256 at
    every block size it takes (Bk = 32, 64, 128: the A/B behind the
    scheduler's Bk, printed as a per-Bk line), its rows also held to the
-   plain scan's int16 rows, and the sweep solve's slab entry
+   plain scan's int16 rows (also on chain16k's lone V = 16384 bucket at
+   ``device_max_v=16384``: one chain contig of 6,000 segments,
+   ``CHAIN16K``), and the sweep solve's slab entry
    (``n_sweeps = V``, its default hint) on long2000's widest V <= 256
    slab bucket, and on its V = 512 slab buckets (the workspace pass, a
    library size: printed, not summed into the kernels line).  Python
@@ -46,9 +48,10 @@ Run from the root of a checkout, on a machine with a CUDA device:
 3. End to end, each path with the launch counts set to 0 just before it
    and read just after: the native plane, ``solve_dataset_torch(None,
    cfg, src_paths=...)`` at the default ``device_max_v`` (8192) on the
-   three corpora, the three output files byte-compared with the port's
-   ``native.run`` on the same input, the engine's counts held to the JAX
-   device engine's; then the Python plane, ``solve_dataset_torch(
+   three corpora, and on chain16k at ``device_max_v=16384``, the three
+   output files byte-compared with the port's ``native.run`` on the same
+   input, the engine's counts held to the JAX device engine's; then the
+   Python plane, ``solve_dataset_torch(
    read_paf(long2000), cfg)`` on the card, its files byte-compared with
    ``native.run``'s and its counts held to the JAX Python plane's (and
    no Jacobi-branch contig); then the Python plane on querysparse2000 the
@@ -80,17 +83,19 @@ Run from the root of a checkout, on a machine with a CUDA device:
    kernel (``densify_wire``) against its plain version on every V <= 256
    bucket of karyotype10k and long2000 exported with ``export_wire`` (the
    data axis's wire), its slabs' scan rows bit-equal too; the edge-sharded
-   relaxation kernel (``shard_relax``) against the literal plain rounds on
-   the shards of the giant corpus's giant contig (bigv plus a
-   20,000-segment chain contig, ``GIANT``: 32,122 vertices, 32,768
-   sweeps).  Then, with the launch counts set to 0 just before and read
+   relaxation (``shard_relax``) on the shards of the giant corpus's giant
+   contig (bigv plus a 20,000-segment chain contig, ``GIANT``: 32,122
+   vertices, a longest path of 26,061 edges, 32,768 sweeps), its checked
+   pass (the default route) and its forced rounds (``route="rounds"``,
+   their sweep count at the fixpoint exit printed) each against one run of
+   the literal plain rounds.  Then, with the launch counts set to 0 just before and read
    just after: the native plane over the mesh on karyotype10k and long2000 (files
    byte-equal to ``native.run``, counts held to the JAX engine's under an
    8-device mesh, ``MESH_NATIVE``), the Python plane over it on long2000
    (``MESH_PYTHON``), and the giant corpus through the native plane's
    graph axis (``graph_shard_min_records`` the giant contig's record
    count from the exporter's meta: ``graph_sharded == 1``, files
-   byte-equal to ``native.run``); then the three native-plane runs once
+   byte-equal to ``native.run``, ``shard_relax.rounds`` printed); then the three native-plane runs once
    more under torch.profiler (wall, device busy; the Python plane's run
    is profiled itself).  Last, two ranks of the port's
    multihost (``python -m alignasm_tpu_torch.parallel.multihost
@@ -143,6 +148,9 @@ CORPORA = {
     "long2000": dict(device=1952, fallback=34, native_direct=0,
                      wire16_buckets=1),
     "bigv": dict(device=4, fallback=0, native_direct=0, wire16_buckets=0),
+    # at device_max_v=16384 (CHAIN16K)
+    "chain16k": dict(device=1, fallback=0, native_direct=0,
+                     wire16_buckets=0),
 }
 # The JAX Python plane's counts on long2000 (solve_dataset_tpu(read_paf(
 # long2000), cfg) on the CPU, batch_size 256).
@@ -161,6 +169,9 @@ QUERYSPARSE_BUCKETS = ([(64, 256), (128, 256), (128, 256), (256, 256),
 # bigv: four chain contigs of tests/test_scale.py, (segments, seed) each,
 # of 970 to 7,226 vertices.
 BIGV = ((600, 11), (1200, 23), (2500, 35), (4500, 47))
+# chain16k: one chain contig of tests/test_scale.py, (segments, seed), of
+# 8,193-16,384 vertices: at device_max_v=16384 a lone V = 16384 bucket.
+CHAIN16K = (6000, 7)
 # The giant corpus of phase 6: bigv's four contigs and one chain contig of
 # (segments, seed), over max_device_records and the device's vertex cap:
 # only the graph axis takes it to the device.
@@ -264,6 +275,14 @@ def write_corpora(tmp: pathlib.Path) -> dict:
         paths[name] = tmp / f"{name}.paf"
         paths[name].write_text(text)
     return paths
+
+
+def write_chain16k(tmp: pathlib.Path) -> pathlib.Path:
+    from alignasm_tpu_torch.testing.synth import _chain_contig
+
+    path = tmp / "chain16k.paf"
+    path.write_text(_chain_contig(CHAIN16K[0], seed=CHAIN16K[1]))
+    return path
 
 
 def write_querysparse(long2000: pathlib.Path) -> pathlib.Path:
@@ -917,7 +936,8 @@ def phase_end_to_end(paths, cfg, device, tmp):
                 fail(f"{name}: stats[{key!r}] = {stats.get(key, 0)}, "
                      f"expected {want}")
         n = stats["n_contigs"]
-        print(f"end-to-end {name} on {device}: {n} contigs, files byte-equal "
+        print(f"end-to-end {name} on {device} (device_max_v "
+              f"{cfg.device_max_v}): {n} contigs, files byte-equal "
               f"to native.run; device {stats['device']} fallback "
               f"{stats['fallback']} native_direct {stats['native_direct']}; "
               f"buckets {stats['bucket_vs']} wire16 "
@@ -1152,29 +1172,69 @@ def phase_mesh_kernels(paths, giant, cfg, mesh, results):
     shards = [tuple(torch.from_numpy(c[sl]).to(d) for c in cols)
               for d, sl in zip(mesh, tmesh.shard_slices(len(cols[0]),
                                                         len(mesh)))]
-    k_fn = lambda: shard_relax(shards, Vp, n_sweeps, dest)  # noqa: E731
-    p_fn = lambda: tmesh.edge_sharded_sp_plain(  # noqa: E731
-        shards, Vp, n_sweeps, dest)
-    k_fn()  # warm-up
-    ms, got = cuda_ms_once(k_fn)
+    rows, L = giant_depth(cols, Vp)
+    # the plain rounds once: both routes are held to that one result
     t0 = time.perf_counter()
-    plain, want = cuda_ms_once(p_fn)
+    plain, want = cuda_ms_once(lambda: tmesh.edge_sharded_sp_plain(
+        shards, Vp, n_sweeps, dest))
     plain_wall = time.perf_counter() - t0
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-    if err:
-        fail(f"mesh giant: shard_relax disagrees with plain (max_abs_err "
-             f"{err})")
-    reached = int((got[0] < 2**62).sum())
+    reached = int((want[0] < 2**62).sum())
+    print(f"mesh kernels giant: {n_rec} records, V={V} (Vp={Vp}) E={E} "
+          f"(Ep={len(cols[0])}), {rows} rows, longest path {L} edges, "
+          f"{len(mesh)} shards on {', '.join(mesh)}, {n_sweeps} sweeps; "
+          f"plain rounds {plain:.4f} ms ({plain_wall:.1f} s wall, {reached} "
+          f"vertices reach dest)", flush=True)
     # one pass of the int64 relaxation over the contig's edges, each input
     # read once (37 bytes an edge) and the four outputs written once
-    bound = record(results, "shard_relax", err, ms, plain,
-                   37 * len(cols[0]) + 32 * Vp, SP64_OPS * E)
-    print(f"mesh kernels giant: {n_rec} records, V={V} (Vp={Vp}) E={E} "
-          f"(Ep={len(cols[0])}), {len(mesh)} shards on {', '.join(mesh)}, "
-          f"{n_sweeps} sweeps: shard_relax bit-equal to the plain rounds "
-          f"({reached} vertices reach dest); {ms:.4f} ms (plain {plain:.4f} "
-          f"ms, {plain_wall:.1f} s wall; {bound})", flush=True)
+    nbytes, nops = 37 * len(cols[0]) + 32 * Vp, SP64_OPS * E
+    for route in ("pass", "rounds"):
+        k_fn = lambda: shard_relax(  # noqa: E731
+            shards, Vp, n_sweeps, dest, route=route)
+        rounds = shard_relax.rounds
+        got = k_fn()  # also the warm-up
+        took = "rounds" if shard_relax.rounds > rounds else "pass"
+        # the pass: the mean of five calls (one call's host stalls show);
+        # the rounds: one call
+        ms = cuda_ms(k_fn, 5) if route == "pass" else cuda_ms_once(k_fn)[0]
+        if took != route:
+            fail(f"mesh giant: shard_relax route={route} took the {took}")
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        if err:
+            fail(f"mesh giant: shard_relax route={route} disagrees with "
+                 f"plain (max_abs_err {err})")
+        if route == "pass":  # the route of the main path
+            bound = record(results, "shard_relax", err, ms, plain, nbytes,
+                           nops)
+            detail = f"{1000 * ms / rows:.4f} us a row"
+        else:
+            bound = (f"bound {1e3 * nbytes / MEM_BYTES_PER_S:.4f} ms by "
+                     f"bytes, {1e3 * nops / OPS_PER_S:.4f} by operations")
+            detail = (f"{shard_relax.sweeps} of {n_sweeps} sweeps at the "
+                      f"fixpoint exit, {1000 * ms / shard_relax.sweeps:.4f} "
+                      f"us a sweep")
+        print(f"mesh kernels giant shard_relax route={route}: bit-equal to "
+              f"the plain rounds; {ms:.4f} ms ({detail}; plain {plain:.4f} "
+              f"ms; {bound}); shard_relax.rounds {shard_relax.rounds}",
+              flush=True)
     return n_rec
+
+
+def giant_depth(cols, V):
+    """(rows, longest path): the giant contig's vertices with a valid
+    out-edge and its longest path in edges, over the wrapper's hint (a
+    reverse Kahn order from erank)."""
+    import torch
+
+    from alignasm_tpu_torch.ops.cuda_shard_relax import pass_inputs
+
+    start, ev, *_rest, order = pass_inputs(
+        [tuple(torch.from_numpy(c) for c in cols)], V, torch.device("cpu"))
+    start, ev, order = start.tolist(), ev.tolist(), order.tolist()
+    depth = [0] * V
+    for u in reversed(order):
+        depth[u] = max((depth[v] + 1 for v in ev[start[u]:start[u + 1]]),
+                       default=0)
+    return sum(start[u + 1] > start[u] for u in range(V)), max(depth)
 
 
 def profiled_run(fn):
@@ -1206,6 +1266,7 @@ def phase_mesh_end_to_end(paths, giant, giant_rec, cfg, mesh, tmp):
     graph axis; files byte-equal to native.run, counts held to JAX's."""
     from alignasm_tpu_torch import native
     from alignasm_tpu_torch.io.paf import read_paf, write_outputs
+    from alignasm_tpu_torch.ops.cuda_shard_relax import shard_relax
     from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
     def held(what, stats, want):
@@ -1256,6 +1317,7 @@ def phase_mesh_end_to_end(paths, giant, giant_rec, cfg, mesh, tmp):
     native.drain_teardowns()
     t0 = time.perf_counter()
     native.run(str(giant), out_prefix=str(tmp / "native_giant"), config=gcfg)
+    shard_relax.rounds = 0
     t_native = time.perf_counter() - t0
     native.drain_teardowns()
     t0 = time.perf_counter()
@@ -1268,7 +1330,8 @@ def phase_mesh_end_to_end(paths, giant, giant_rec, cfg, mesh, tmp):
         fail("mesh giant: output files differ from native.run")
     print(f"mesh end-to-end giant graph axis over {len(mesh)} devices: files "
           f"byte-equal to native.run ({t_native:.4f} s); graph_sharded "
-          f"{st['graph_sharded']} shard_s {st['shard_s']} device "
+          f"{st['graph_sharded']} shard_relax.rounds {shard_relax.rounds} "
+          f"shard_s {st['shard_s']} device "
           f"{st['device']} fallback {st['fallback']} buckets "
           f"{st.get('bucket_vs')}; wall {wall:.4f} s", flush=True)
     return gcfg
@@ -1536,11 +1599,15 @@ def phases_one_card(paths, qs_paf, cfg, device, results, tmp, card):
     from alignasm_tpu_torch.ops import launch_counts, reset_launch_counts
 
     counts = {}
+    chain = {"chain16k": write_chain16k(tmp)}
+    cfg16 = dataclasses.replace(cfg, device_max_v=16384)
     phase_kernels(paths, cfg, device, results)
+    phase_kernels(chain, cfg16, device, results)
     phase_python_kernels(paths["long2000"], cfg, device, results)
     phase_relax64_kernels(qs_paf, cfg, device, results)
     reset_launch_counts()
     always = phase_end_to_end(paths, cfg, device, tmp)
+    phase_end_to_end(chain, cfg16, device, tmp)
     counts["native"] = launch_counts()
     reset_launch_counts()
     phase_python_plane("long2000", paths["long2000"], PYTHON_PLANE, cfg,

@@ -342,6 +342,8 @@ def test_scan_kernel_counts_an_edge_whose_sum_is_exactly_inf32(cuda_device,
     # dest below the last blocks, with edges into it from the rows past
     # it: the dest-below-lo cell of the nxt rule
     (1024, 0.03, 6, 200, 3, True),
+    # the ceiling of device_max_v: a lone V = 16384 contig, a 1.07 GB slab
+    (16384, 0.0003, 8, 16000, 1, False),
 ])
 def test_blocked_kernel_matches_plain_on_the_card(cuda_device, V, density,
                                                   seed, nv, B, into_dest, Bk):
@@ -986,36 +988,90 @@ def _shard_graph(V, seed, n_shards, deg=3, chain=True):
     return out, V - 1
 
 
+def _shards_on(args, mesh):
+    """The graph axis's shards of ``args``: slice k on mesh[k]."""
+    per = len(args[0]) // len(mesh)
+    return [tuple(torch.from_numpy(a[k * per:(k + 1) * per]).to(d)
+                  for a in args) for k, d in enumerate(mesh)]
+
+
+def _shard_relax_route(shards, V, n_sweeps, dest, route):
+    """shard_relax on ``route``, with the route it took: "pass" unless its
+    ``rounds`` count moved."""
+    from alignasm_tpu_torch.ops.cuda_shard_relax import shard_relax
+
+    rounds = shard_relax.rounds
+    got = shard_relax(shards, V, n_sweeps, dest, route=route)
+    took = "rounds" if shard_relax.rounds > rounds else "pass"
+    if took == "rounds":
+        assert 0 < shard_relax.sweeps <= n_sweeps
+    else:
+        assert shard_relax.sweeps is None
+    return got, took
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["pass", "rounds"])
 @pytest.mark.parametrize("V,n_shards,n_sweeps,seed,chain", [
     (64, 1, 128, 0, True), (64, 2, 128, 1, True), (200, 3, 256, 2, False),
     (512, 8, 1024, 3, True), (512, 2, 3, 4, True), (4096, 2, 8192, 5, True),
-    (1000, 5, 40, 6, False),
+    (1000, 5, 40, 6, False), (1000, 2, 2000, 7, False),
 ])
 def test_shard_relax_kernel_matches_plain_on_the_card(cuda_device, V,
                                                       n_shards, n_sweeps,
-                                                      seed, chain):
-    """The edge-sharded relaxation kernel over a mesh of repeated cuda:0
-    entries bit-equals the literal plain rounds on the same CUDA shards,
-    at full and cut sweeps (cut: vertices whose successors are all still
-    unreachable, m1 == INF)."""
+                                                      seed, chain, route):
+    """The edge-sharded relaxation over a mesh of repeated cuda:0 entries
+    bit-equals the literal plain rounds on the same CUDA shards, at full
+    and cut sweeps (cut: vertices whose successors are all still
+    unreachable, m1 == INF): the checked pass (its hint from erank, every
+    check holding) and the forced rounds, which stop at their fixpoint
+    (2000 sweeps: past their first checks)."""
     from alignasm_tpu_torch.parallel import mesh as tmesh
 
     args, dest = _shard_graph(V, seed, n_shards, chain=chain)
-    mesh = ("cuda:0",) * n_shards
-    got = tmesh.edge_sharded_sp(mesh, args, V, n_sweeps, dest)
-    per = len(args[0]) // n_shards
-    shards = [tuple(torch.from_numpy(a[k * per:(k + 1) * per]).to("cuda:0")
-                    for a in args) for k in range(n_shards)]
+    shards = _shards_on(args, ("cuda:0",) * n_shards)
+    got, took = _shard_relax_route(shards, V, n_sweeps, dest, route)
+    assert took == route
     want = tmesh.edge_sharded_sp_plain(shards, V, n_sweeps, dest)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if route == "pass":  # the graph axis's own call takes the pass
+        got = tmesh.edge_sharded_sp(("cuda:0",) * n_shards, args, V,
+                                    n_sweeps, dest)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hint", "pool"])
+def test_shard_relax_pass_failure_takes_the_rounds_on_the_card(
+        cuda_device, case, monkeypatch):
+    """A contig that fails the pass's check (a) (ranks whose Kahn
+    positions are reversed, so the hint runs against every edge) or (d)
+    (a pool of no entry) is solved by the rounds, bit-equal to the plain
+    rounds."""
+    from alignasm_tpu_torch.ops import cuda_shard_relax
+    from alignasm_tpu_torch.parallel import mesh as tmesh
+
+    args, dest = _shard_graph(300, 11, 2)
+    if case == "hint":
+        args[6] = ((args[1].astype(np.int64) << 26) | (args[6] & 3))
+    else:
+        monkeypatch.setattr(cuda_shard_relax, "POOL_PER_VERTEX", 0)
+    shards = _shards_on(args, ("cuda:0",) * 2)
+    got, took = _shard_relax_route(shards, 300, 600, dest, "pass")
+    assert took == "rounds"
+    want = tmesh.edge_sharded_sp_plain(shards, 300, 600, dest)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
-def test_shard_relax_kernel_over_every_visible_card(cuda_device):
-    """Over a mesh of every visible card (peer copies of the folds and
-    the state; skips on one card) the kernel equals the plain rounds."""
+@pytest.mark.parametrize("route", ["pass", "rounds"])
+def test_shard_relax_kernel_over_every_visible_card(cuda_device, route):
+    """Over a mesh of every visible card (the pass's gather, and the
+    rounds' peer copies of the folds and the state; skips on one card)
+    each route equals the plain rounds."""
     from alignasm_tpu_torch.parallel import mesh as tmesh
 
     n = torch.cuda.device_count()
@@ -1023,7 +1079,9 @@ def test_shard_relax_kernel_over_every_visible_card(cuda_device):
         pytest.skip("needs two or more CUDA devices")
     mesh = tuple(f"cuda:{i}" for i in range(n))
     args, dest = _shard_graph(700, 9, n)
-    got = tmesh.edge_sharded_sp(mesh, args, 700, 1024, dest)
+    got, took = _shard_relax_route(_shards_on(args, mesh), 700, 1024, dest,
+                                   route)
+    assert took == route
     want = tmesh.edge_sharded_sp(("cpu",) * n, args, 700, 1024, dest)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)

@@ -6,8 +6,9 @@ A mesh of repeated CPU entries (``("cpu",) * 8``, and ``("cpu",) * 3``,
 a mesh that is not a power of two) drives the sharded code: the data axis
 of both planes (the fixed-width wire's densify and scan, the Python
 plane's dense and int32 buckets), the graph axis (the literal rounds of
-``make_edge_sharded_sp``, and a numpy emulation of csrc/shard_relax.cu's
-fused fold), a resumed run and multihost.  Every value is an integer, so
+``make_edge_sharded_sp``, and numpy emulations of csrc/shard_relax.cu's
+checked pass and of its rounds' fused fold and fixpoint exit), a resumed
+run and multihost.  Every value is an integer, so
 the tolerance is bit-equality; files are compared byte for byte with the
 port's ``native.run``.
 """
@@ -367,14 +368,18 @@ def test_edge_sharded_sp_matches_jax(n_dev):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
-def _fused_emulation(args, V, n_sweeps, dest, n_dev):
-    """csrc/shard_relax.cu in numpy and Python ints: each shard's valid
-    edges in CSR order by eu (stable) and whether it holds any edge of a
-    vertex; per vertex one lexicographic fold of its valid candidates'
-    (k1, k2, rank) with the tied winners' payload minimum ((INF, INF, INF)
-    and payload INF when the shard holds edges of the vertex but none
-    valid, INT64_MAX throughout when it holds none), the lexicographic
-    merge over the shards, then the state update."""
+def _fused_emulation(args, V, n_sweeps, dest, n_dev, check=None):
+    """csrc/shard_relax.cu's rounds in numpy and Python ints: each shard's
+    valid edges in CSR order by eu (stable) and whether it holds any edge
+    of a vertex; per vertex one lexicographic fold of its valid
+    candidates' (k1, k2, rank) with the tied winners' payload minimum
+    ((INF, INF, INF) and payload INF when the shard holds edges of the
+    vertex but none valid, INT64_MAX throughout when it holds none), the
+    lexicographic merge over the shards, then the state update.  With
+    ``check`` the host loop's fixpoint exit: every ``check`` sweeps it
+    notes the last sweep that changed a state word and reads the previous
+    check's note, stopping when that check's sweep changed nothing.
+    Returns (d_s, d_a, d_nz, d_tot) and the number of sweeps run."""
     cols = [np.asarray(a) for a in args]
     per = len(cols[0]) // n_dev
     shards = []
@@ -393,7 +398,8 @@ def _fused_emulation(args, V, n_sweeps, dest, n_dev):
     def key(t):
         return (t[0], t[1], t[2])
 
-    for _ in range(n_sweeps):
+    last, pending, run = -1, None, 0
+    for sweep in range(n_sweeps):
         locs = []
         for eu, ev, es, ea, enz, etot, erank, has in shards:
             loc = [[INF] * 7 if u in has else [INT64_MAX] * 7
@@ -426,8 +432,17 @@ def _fused_emulation(args, V, n_sweeps, dest, n_dev):
                 m[0] == cur1 and m[1] == cur2 and m[2] < rk)
             if better and m[3] < INF:
                 for j, x in enumerate((m[3], m[4], m[5], m[6], m[2])):
+                    if st[j][u] != x:
+                        last = sweep
                     st[j][u] = x
-    return [np.asarray(st[j], np.int64) for j in range(4)]
+        run = sweep + 1
+        if run == n_sweeps:
+            break
+        if check and run % check == 0:
+            if pending is not None and pending[0] < pending[1]:
+                break
+            pending = (last, sweep)
+    return [np.asarray(st[j], np.int64) for j in range(4)], run
 
 
 def _tied_graph(n_dev, seed):
@@ -478,13 +493,106 @@ def test_fused_fold_matches_literal_rounds(case, n_dev, sweeps):
         args, V, dest = _tied_graph(n_dev, seed=len(case) + n_dev)
         n_sweeps = None
     n_sweeps = sweeps or n_sweeps
-    got = _fused_emulation(args, V, n_sweeps, dest, n_dev)
+    got, run = _fused_emulation(args, V, n_sweeps, dest, n_dev)
+    assert run == n_sweeps
     plain = tmesh.edge_sharded_sp(("cpu",) * n_dev, args, V, n_sweeps, dest)
     want = _jax_sharded(args, V, n_sweeps, dest, n_dev)
     for g, p, w in zip(got, plain, want):
         np.testing.assert_array_equal(p.numpy(), w)
         np.testing.assert_array_equal(g, w)
     assert (want[0] < INF).sum() > 1  # the relaxation reached past dest
+
+
+def _graph_axis_emulation(args, V, n_sweeps, dest, n_dev, order=None,
+                          cap=None):
+    """csrc/shard_relax.cu's default route in numpy and Python ints: its
+    checked pass (tests/test_torch_relax64.py:_pass_contig with the
+    edge-sharded winner, ``shard=True``) over the contig's edges, with the
+    hint the wrapper derives (``cuda_shard_relax.pass_inputs``) unless
+    ``order`` is given and a pool of ``POOL_PER_VERTEX * V`` entries
+    unless ``cap`` is; a contig that fails check (a) or (d) takes the
+    rounds with their fixpoint exit.  Returns (outputs, route)."""
+    from alignasm_tpu_torch.ops import cuda_shard_relax as csr
+    from tests.test_torch_relax64 import _pass_contig
+
+    cols = [np.asarray(a) for a in args]
+    if order is None:
+        shards = [tuple(torch.from_numpy(c[sl]) for c in cols)
+                  for sl in tmesh.shard_slices(len(cols[0]), n_dev)]
+        order = csr.pass_inputs(shards, V, torch.device("cpu"))[-1].numpy()
+    cap = csr.POOL_PER_VERTEX * V if cap is None else cap
+    flag, out = _pass_contig(*cols, dest, V, n_sweeps, order, cap,
+                             np.random.default_rng(0), shard=True)
+    if flag:
+        return _fused_emulation(args, V, n_sweeps, dest, n_dev,
+                                check=4)[0], "rounds"
+    return [out[k] for k in ("d_s", "d_a", "d_nz", "d_tot")], "pass"
+
+
+@pytest.mark.parametrize("case,n_dev,sweeps,route", [
+    ("giant-full", 8, None, "pass"), ("giant-1", 8, 1, "pass"),
+    ("giant-2", 8, 2, "pass"), ("giant-3dev", 3, None, "pass"),
+    ("tied", 3, 30, "pass"), ("tied-1", 2, 1, "pass"),
+    ("tied-8", 8, 30, "pass"),
+    # the hint fails check (a): reversed, and the tied DAGs' own, whose
+    # ranks are no Kahn positions
+    ("giant-reversed", 8, None, "rounds"), ("tied-hint", 3, 30, "rounds"),
+    ("giant-pool", 8, None, "rounds"),  # too small a pool: check (d)
+])
+def test_graph_axis_pass_emulation_matches_literal_rounds(case, n_dev,
+                                                          sweeps, route):
+    """csrc/shard_relax.cu's checked pass (``_graph_axis_emulation``)
+    equals the literal rounds (``edge_sharded_sp_plain``) and the JAX
+    program on the giant contig at full and cut sweeps, on the tied DAGs
+    (identity hint), and where check (a) or (d) fails, which sends the
+    contig to the rounds."""
+    order = cap = None
+    if case.startswith("giant"):
+        args, V, n_sweeps, dest = _giant_contig_edges(n_dev)
+        if case == "giant-reversed":
+            order = np.arange(V)[::-1]
+        if case == "giant-pool":
+            cap = V // 4
+    else:
+        args, V, dest = _tied_graph(n_dev, seed=len(case) + n_dev)
+        n_sweeps = None
+        if case != "tied-hint":
+            order = np.arange(V)  # every edge climbs: u < v
+    n_sweeps = sweeps or n_sweeps
+    got, took = _graph_axis_emulation(args, V, n_sweeps, dest, n_dev, order,
+                                      cap)
+    assert took == route
+    plain = tmesh.edge_sharded_sp(("cpu",) * n_dev, args, V, n_sweeps, dest)
+    want = _jax_sharded(args, V, n_sweeps, dest, n_dev)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_array_equal(p.numpy(), w)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("case,n_dev", [("giant", 8), ("giant", 3),
+                                        ("tied", 3), ("tied", 8)])
+@pytest.mark.parametrize("depth", ["below", "above"])
+def test_rounds_fixpoint_exit_matches_literal_rounds(case, n_dev, depth):
+    """The rounds' fixpoint exit (a check every 4 sweeps in the
+    emulation) equals the literal rounds and the JAX program at n_sweeps
+    below the longest path L + 2, where no sweep is a fixpoint before the
+    last, and above it, where the rounds stop early."""
+    if case == "giant":
+        args, V, _n, dest = _giant_contig_edges(n_dev)
+    else:
+        args, V, dest = _tied_graph(n_dev, seed=len(case) + n_dev)
+    from tests.test_torch_relax64 import _longest
+
+    L = _longest([np.asarray(a)[None] for a in args], 0, V)
+    n_sweeps = max(1, L // 2) if depth == "below" else 2 * L + 16
+    got, run = _fused_emulation(args, V, n_sweeps, dest, n_dev, check=4)
+    if depth == "above":
+        assert run < n_sweeps
+    plain = tmesh.edge_sharded_sp(("cpu",) * n_dev, args, V, n_sweeps, dest)
+    want = _jax_sharded(args, V, n_sweeps, dest, n_dev)
+    for g, p, w in zip(got, plain, want):
+        np.testing.assert_array_equal(p.numpy(), w)
+        np.testing.assert_array_equal(g, w)
 
 
 def _giant_corpus(tmp_path, seed_small=9):
@@ -663,8 +771,12 @@ def test_new_kernel_wrappers_take_only_cuda_tensors():
         cuda_shard_relax.shard_relax([shard], V, n_sweeps, dest)
     with pytest.raises(ValueError, match="dest < V"):
         cuda_shard_relax.shard_relax([shard], V, n_sweeps, V)
+    with pytest.raises(ValueError, match="route"):
+        cuda_shard_relax.shard_relax([shard], V, n_sweeps, dest,
+                                     route="sweeps")
     assert cuda_densify.densify_wire.launches == 0
     assert cuda_shard_relax.shard_relax.launches == 0
+    assert cuda_shard_relax.shard_relax.rounds == 0
 
 
 def test_mesh_paths_import_no_jax(tmp_path):

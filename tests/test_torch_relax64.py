@@ -329,15 +329,36 @@ class _Fold:
         return min(self.floor2(), self.a1_value() if self.any1 else I64_MAX)
 
 
+def _payload_min(rows_u, got, erank, ident, m1, m2, m3):
+    """The edge-sharded program's winner at a row (csrc/shard_relax.cu's
+    rule): each payload field the minimum over the row's edges of the
+    field for a winner (reached, k1 == m1, k2 == m2, erank == m3) and INF
+    for any other edge, an invalid edge of the row included (its identity
+    is then INF); taken, with rank m3, only below INF.  None: no update."""
+    wins = [e for e in rows_u if got[e][0] and erank[e] == m3
+            and _pk(got[e][1]["s"], got[e][1]["a"]) == m1
+            and _qk(got[e][1]["nz"], got[e][1]["tot"]) == m2]
+    new = {k: min(got[e][1][k] for e in wins) if wins else I64_MAX
+           for k in ("s", "a", "nz", "tot")}
+    if ident == INF or len(wins) < len(rows_u):
+        new = {k: min(v, INF) for k, v in new.items()}
+    if not wins or new["s"] >= INF:
+        return None
+    return dict(new, rank=m3, eid=-1)
+
+
 def _pass_contig(eu, ev, es, ea, enz, etot, erank, evalid, dest, V, ns,
-                 order, cap, rng):
+                 order, cap, rng, shard=False):
     """One contig as csrc/relax64.cu's checked pass computes it.  Returns
     (flag, outputs): flag 0 when every check holds (the outputs are the
     pass's), 1 when (a) the hint, (c) the depth (a longest path under 3/4
     of the rows) or (d) the history pool fails (the Jacobi branch solves
     the whole contig), 2 when only (b) the longest path exceeds ``ns``
     (the distance outputs are the pass's, the branch runs the floor and
-    the counts)."""
+    the counts).  ``shard``: csrc/shard_relax.cu's pass, which runs the
+    same replay with the edge-sharded program's winner (``_payload_min``),
+    makes no check (c) and computes the distance alone: flag 0 with the
+    outputs d_s, d_a, d_nz, d_tot, or 1 when (a) or (d) fails."""
     eu, ev, es, ea, enz, etot, erank = (
         [int(x) for x in arr] for arr in (eu, ev, es, ea, enz, etot, erank))
     order = list(range(V)) if order is None else [int(x) for x in order]
@@ -365,7 +386,7 @@ def _pass_contig(eu, ev, es, ea, enz, etot, erank, evalid, dest, V, ns,
     L = [0] * V
     for u in reversed(order):
         L[u] = max((L[ev[e]] + 1 for e in rows[u]), default=0)
-    if 4 * max(L) < 3 * sum(map(bool, rows)):
+    if not shard and 4 * max(L) < 3 * sum(map(bool, rows)):
         return 1, None                                    # (c) the depth
 
     def init(v):
@@ -419,10 +440,14 @@ def _pass_contig(eu, ev, es, ea, enz, etot, erank, evalid, dest, V, ns,
             if m1 == cur1:  # ties on k1: the mapq keys decide
                 m2, k2x = fold.m2_value(), _qk(x["nz"], x["tot"])
                 better = m2 < k2x or (m2 == k2x and m3 < x["rank"])
-            wins = [e for e in rows[u] if got[e][0] and erank[e] == m3]
-            if better and wins:
-                win = min(wins)
-                new = dict(got[win][1], rank=erank[win], eid=win)
+            if shard:
+                new = better and _payload_min(rows[u], got, erank, ident[u],
+                                              m1, fold.m2_value(), m3)
+            else:
+                wins = [e for e in rows[u] if got[e][0] and erank[e] == m3]
+                new = better and wins and dict(
+                    got[min(wins)][1], rank=erank[min(wins)], eid=min(wins))
+            if new:
                 if any(new[k] != x[k] for k in ("s", "a", "nz", "tot")):
                     hist[u].append((t, new))
                     used += 1
@@ -445,6 +470,8 @@ def _pass_contig(eu, ev, es, ea, enz, etot, erank, evalid, dest, V, ns,
         return 1, None                                    # (d) the pool
     out = {k: np.array([final[v][k[2:]] for v in range(V)], np.int64)
            for k in ("d_s", "d_a", "d_nz", "d_tot")}
+    if shard:
+        return 0, out
     out["d_eid"] = np.array([final[v]["eid"] for v in range(V)], np.int32)
     if max(L) > ns:
         return 2, out                                     # (b) the floor

@@ -354,17 +354,17 @@ def test_jax_env_var_does_not_steer_the_port(tmp_path, monkeypatch):
 
 def test_device_route_guard_applies_only_to_device_routes(tmp_path,
                                                           monkeypatch):
-    """``device_max_v`` over 8192 raises only when the routing would
+    """``device_max_v`` over 16384 raises only when the routing would
     send contigs to the device: under a model with no win, ``"auto"``
     runs the fused native plane."""
-    cfg = dataclasses.replace(DEFAULT_CONFIG, device_max_v=16384)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, device_max_v=32768)
     paf = DATA / "synth_small.paf"
     _calibrate_with(tmp_path, monkeypatch, {})
     solve_dataset_torch(None, cfg, src_paths=(str(paf), None),
                         write_prefix=str(tmp_path / "a"), device="cpu")
     assert solve_dataset_torch.last_stats["routed"] == "fused-native"
     _calibrate_with(tmp_path, monkeypatch, LAUNCH_ALL)
-    with pytest.raises(NotImplementedError, match="Buckets above V = 8192"):
+    with pytest.raises(NotImplementedError, match="16384"):
         solve_dataset_torch(None, cfg, src_paths=(str(paf), None),
                             write_prefix=str(tmp_path / "b"), device="cpu")
 

@@ -1,7 +1,7 @@
 """The port's end-to-end device path (alignasm_tpu_torch.runtime.scheduler)
 on the CPU, native plane: output files byte-equal to the committed
 goldens, to the native engine and to the JAX package's device engine,
-with the scan (V <= 256) and the blocked solve (256 < V <= 8192);
+with the scan (V <= 256) and the blocked solve (256 < V <= 16384);
 ``device_routing="never"``, the stats keys, the contig-count check and
 the CLI's messages against the JAX package's; the degrade-to-native
 contract; the guards of what the slice does not cover; and nothing of
@@ -176,6 +176,18 @@ def test_chain_contigs_match_native_and_jax_engine(tmp_path):
     assert stats["device"] + stats["fallback"] == 2, stats
 
 
+def test_v16384_bucket_matches_native_and_jax_engine(tmp_path):
+    """device_max_v=16384, the ceiling: a chain contig of 6000 segments
+    (7,859 records, 8,193-16,384 vertices) makes one V = 16384 blocked
+    bucket at B = 1 and is counted ``device`` 1, as by the JAX engine;
+    the files equal native.run's and the JAX engine's."""
+    paf = tmp_path / "v16384.paf"
+    paf.write_text(_chain_corpus((6000, 7)))
+    cfg = dataclasses.replace(CFG, device_max_v=16384)
+    stats = _matches_native_and_jax_engine(tmp_path, paf, cfg)
+    assert stats["bucket_vs"] == [16384] and stats["device"] == 1, stats
+
+
 @pytest.mark.parametrize("realB,V,padB", [
     (1, 8192, 1), (3, 4096, 4), (3, 64, 8), (1, 256, 8), (9, 512, 16),
 ])
@@ -267,7 +279,7 @@ def test_kernel_failure_raises(tmp_path, monkeypatch, failure):
 
 
 @pytest.mark.parametrize("change,src_paths,needle", [
-    (dict(device_max_v=16384), True, "Buckets above V = 8192"),
+    (dict(device_max_v=32768), True, "16384"),
 ])
 def test_uncovered_configurations_raise(tmp_path, change, src_paths, needle):
     cfg = dataclasses.replace(CFG, **change)
