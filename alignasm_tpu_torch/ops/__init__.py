@@ -1,8 +1,8 @@
 """Device ops of the port: plain PyTorch versions (dense.py, relax32.py,
-relax.py, dense_sp.py), the host-to-device wire transport (wire.py) and
+relax.py, dense_sp.py, topk.py), the host-to-device wire transport (wire.py) and
 the CUDA kernel wrappers (cuda_densify.py, cuda_topo.py, cuda_blocked.py,
 cuda_sweep.py, cuda_relax32.py, cuda_relax64.py, cuda_dense_sp.py,
-cuda_shard_relax.py;
+cuda_shard_relax.py, cuda_topk.py;
 kernels in ../csrc, built by _build.py)."""
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ def _wrappers():
     """Kernel name -> the wrappers that launch it."""
     from alignasm_tpu_torch.ops import (
         cuda_blocked, cuda_dense_sp, cuda_densify, cuda_relax32,
-        cuda_relax64, cuda_shard_relax, cuda_sweep, cuda_topo,
+        cuda_relax64, cuda_shard_relax, cuda_sweep, cuda_topk, cuda_topo,
     )
 
     return {
@@ -27,6 +27,7 @@ def _wrappers():
         "relax64": (cuda_relax64.relax64,),
         "dense_sp": (cuda_dense_sp.dense_sp,),
         "shard_relax": (cuda_shard_relax.shard_relax,),
+        "topk": (cuda_topk.topk_walks_batch,),
     }
 
 

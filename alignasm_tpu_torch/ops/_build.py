@@ -119,13 +119,16 @@ def _bind(lib) -> None:
                                    i32, i64, i64, p, p, p, p]
     lib.aln_shard_pass_work_words.argtypes = [i32, i64, i64]
     lib.aln_shard_pass_work_words.restype = ctypes.c_int64
+    lib.aln_topk.argtypes = [i32, p, p, i64, i32, i32, i32, p, p, p]
+    lib.aln_topk_smem_bytes.argtypes = [i32, i32]
+    lib.aln_topk_smem_bytes.restype = ctypes.c_int64
     for fn in (lib.aln_shard_relax, lib.aln_shard_pass,
                lib.aln_densify_scatter, lib.aln_densify_wire,
                lib.aln_densify_wire16,
                lib.aln_topo_scan_nxt8, lib.aln_blocked_dp_nxt16,
                lib.aln_blocked_dp_scratch_words, lib.aln_sweep_dense,
                lib.aln_sweep_dense_work_words, lib.aln_relax32,
-               lib.aln_dense_sp, lib.aln_relax64):
+               lib.aln_dense_sp, lib.aln_relax64, lib.aln_topk):
         fn.restype = ctypes.c_int
     lib.aln_cuda_error_string.argtypes = [ctypes.c_int]
     lib.aln_cuda_error_string.restype = ctypes.c_char_p

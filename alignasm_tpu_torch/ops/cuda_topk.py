@@ -1,0 +1,78 @@
+"""Wrapper of the top-K walk kernel (csrc/topk.cu).
+
+Counterpart of ``alignasm_tpu/ops/topk.py:topk_walks_batch``.  It takes
+CUDA tensors only and raises on anything else; the plain version for CPU
+tensors is ``ops/topk.py:topk_walks_batch_plain``.  ``launches`` counts
+the calls that launched the kernel.  Given a ``sweeps`` tensor (one int32
+on the card), a call adds to it, on its stream, the sweeps the kernel ran
+summed over the contigs: each contig stops at the first sweep that
+changes none of its keys.
+
+A block holds a contig's double-buffered keys and its compacted edges in
+shared memory, ``smem_bytes(V, K)`` bytes, at most ``SMEM_MAX``: V <= 512
+at K <= 17 (V <= 256 at K <= 45); a larger (V, K) raises ValueError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from alignasm_tpu_torch.ops import _build
+from alignasm_tpu_torch.ops.cuda_sweep import check_jacobi, ptr
+
+ROW_CAP = 16             # csrc/topk.cu kRowCap
+SMEM_MAX = 227 * 1024    # csrc/topk.cu kSmemMax
+I32_MAX = 2**31 - 1
+
+
+def smem_bytes(V: int, K: int) -> int:
+    """csrc/topk.cu smem_bytes(): two (V, K | 1) int64 key buffers, and
+    per vertex ROW_CAP keys, ROW_CAP uint16 columns and an int32 degree."""
+    return V * (16 * (K | 1) + 10 * ROW_CAP + 4)
+
+
+def _check(wk1, dest, V: int, K: int, n_sweeps: int):
+    """Types and shapes first (so a CPU caller sees them too), then the
+    device: every tensor a contiguous CUDA tensor."""
+    if wk1.dtype != torch.int64 or wk1.dim() != 3:
+        raise TypeError(f"wk1 must be 3-d torch.int64, got {wk1.dim()}-d "
+                        f"{wk1.dtype}")
+    if dest.dtype != torch.int32 or dest.dim() != 1:
+        raise TypeError(f"dest must be 1-d torch.int32, got {dest.dim()}-d "
+                        f"{dest.dtype}")
+    B = wk1.shape[0]
+    if tuple(wk1.shape) != (B, V, V) or dest.shape[0] != B:
+        raise ValueError(f"wk1 must be (B, V, V) with V = {V} and dest (B,), "
+                         f"got {tuple(wk1.shape)} and {tuple(dest.shape)}")
+    if V < 1 or K < 1:
+        raise ValueError(f"V and K must be >= 1, got V = {V}, K = {K}")
+    if smem_bytes(V, K) > SMEM_MAX:
+        raise ValueError(
+            f"V = {V}, K = {K} needs {smem_bytes(V, K)} bytes of shared "
+            f"memory a block (16 V (K | 1) + {10 * ROW_CAP + 4} V), over "
+            f"the {SMEM_MAX} it holds: V <= 512 at K <= 17")
+    if n_sweeps > I32_MAX:
+        raise ValueError(f"n_sweeps must fit int32, got {n_sweeps}")
+    _build.require(wk1, "wk1", torch.int64, 3)
+    _build.require(dest, "dest", torch.int32, 1)
+
+
+def topk_walks_batch(wk1, dest, V: int, K: int, n_sweeps: int, sweeps=None):
+    """(B, V, V) int64 ``wk1``, (B,) int32 ``dest`` and an optional (1,)
+    int32 sweep count ``sweeps`` -> (B, V, K) int64 keys, as
+    ``topk_walks_batch_plain`` returns them."""
+    n_sweeps = int(n_sweeps)
+    _check(wk1, dest, V, K, n_sweeps)
+    check_jacobi(sweeps, "sweeps")
+    lib = _build.load_library()
+    B = wk1.shape[0]
+    out = torch.empty((B, V, K), dtype=torch.int64, device=wk1.device)
+    dev, stream = _build.stream_of(wk1)
+    rc = lib.aln_topk(dev, wk1.data_ptr(), dest.data_ptr(), B, V, K,
+                      max(n_sweeps, 0), ptr(sweeps), out.data_ptr(), stream)
+    _build.check(rc, "topk")
+    topk_walks_batch.launches += 1
+    return out
+
+
+topk_walks_batch.launches = 0

@@ -31,8 +31,16 @@ Run from the root of a checkout, on a machine with a CUDA device:
    engine path calls it) on the dense buckets' contigs with no contig
    in its Jacobi branch, its s / a rows held to the sweep solve's d_s /
    d_a, then on the same contigs each given a cycle (every one in the
-   branch), held to the plain version.  Each sweep-solve and relaxation
-   bucket runs once more with its hint reversed, so that check (a) sends
+   branch), held to the plain version.  The top-K walk kernel
+   (``topk``, a library entry) on long2000's packed contigs grouped by V
+   (8-512, 256 a batch, K = 16, ``n_sweeps`` the batch's largest vertex
+   count), on synth_hard's contigs as tests/test_topk.py picks them and
+   on a seeded batch with cycles and self-loops (INF + x keys selected),
+   bit-equal to ``topk_walks_batch_plain`` (the torch.topk composition),
+   its sweeps counted; every long2000 and synth_hard contig's
+   ``out[src]`` held to the Eppstein engine's first 16 walks.  Each
+   sweep-solve and relaxation bucket runs once more with its hint
+   reversed, so that check (a) sends
    its contigs to the kernel's Jacobi branch, held to the same plain
    rows.  The int64 relaxation kernel (``relax64``) on every int64
    bucket of querysparse2000 (long2000 made query-sparse,
@@ -110,7 +118,7 @@ check of a machine with several cards: the peer copies of
 
 Then one JSON line of per-kernel results (``launches`` counted in phase
 3, or phase 6 for ``densify_wire`` and ``shard_relax``, null for the
-library entries: ``dense_sp`` and the sweep solve's slab
+library entries: ``dense_sp``, ``topk`` and the sweep solve's slab
 entry, ``sweep_dense_slabs``; ``ms``/``plain_ms`` the kernel's and its
 plain version's times summed over every bucket it ran on in phase 2, for
 the blocked solve at the block size the scheduler picks; ``bound_ms``
@@ -211,6 +219,8 @@ KERNELS = {
                      "alignasm_tpu/ops/dense.py:52", "mesh"),
     "shard_relax": ("alignasm_tpu_torch/csrc/shard_relax.cu",
                     "alignasm_tpu/parallel/mesh.py:40", "mesh"),
+    "topk": ("alignasm_tpu_torch/csrc/topk.cu",
+             "alignasm_tpu/ops/topk.py:35", "library"),
 }
 # The card's rates for the bound (H100 SXM data sheet, 700 W): device
 # memory, and the issue rate of 32-bit scalar operations.  Each of an SM's
@@ -242,6 +252,11 @@ DENSE_SP_OPS = 25
 SP64_OPS = 56
 SCAN_OPS = 25        # per needed cell: three reduction rounds a row
 FOLD_OPS = 15        # blocked solve: per needed cell, folded once
+# The top-K walk kernel's batches: contigs a batch, keys a vertex, and the
+# largest V (csrc/topk.cu holds V <= 512 at K = 16 in shared memory).
+# Its bound counts one reverse-topological pass: K adds and K compares a
+# valid edge.
+TOPK_B, TOPK_K, TOPK_MAX_V = 256, 16, 512
 # The sweep solve's largest V of its register pass (csrc/sweep_dense.cu
 # kRegV); above it the workspace pass runs.
 MAX_PASS_V = 256
@@ -662,7 +677,7 @@ def check_dense_sp_call(what, ts, dest, ns, want, n_want):
 def phase_python_kernels(paf, cfg, device, results):
     """The Python plane's kernels against their plain versions on every
     bucket of ``paf``, packed and bucketed as solve_dataset_torch's
-    Python plane does."""
+    Python plane does.  Returns the packed contigs."""
     import numpy as np
     import torch
 
@@ -721,6 +736,160 @@ def phase_python_kernels(paf, cfg, device, results):
               f"bit-equal; {kname} {ms:.4f} ms/bucket (plain {plain:.4f}; "
               f"{bound}; {edges} edges; jacobi 0; Jacobi branch {jac_ms:.4f} "
               f"ms, reversed hint, {B} contigs){extra}", flush=True)
+    return packed
+
+
+def topk_batches(items, n_sweeps):
+    """Batches (V, items, n_sweeps) of (graph, PackedGraph) items: grouped
+    by V (the next power of two of the vertex count, at least 8), sorted
+    by (vertices, edges), TOPK_B contigs a batch; ``n_sweeps(graphs)``
+    gives a batch's sweeps."""
+    from alignasm_tpu_torch.runtime.scheduler import _next_pow2
+
+    by_v = {}
+    for g, pg in sorted(items, key=lambda t: (t[0].n_vertices, len(t[1].eu))):
+        by_v.setdefault(_next_pow2(g.n_vertices), []).append((g, pg))
+    for V, group in sorted(by_v.items()):
+        if V > TOPK_MAX_V:
+            fail(f"topk: a contig of V = {V} over the kernel's {TOPK_MAX_V}")
+        for lo in range(0, len(group), TOPK_B):
+            chunk = group[lo:lo + TOPK_B]
+            yield V, chunk, n_sweeps([g for g, _pg in chunk])
+
+
+def topk_cycle_batch(seed, B=TOPK_B, V=64):
+    """A seeded batch whose contigs hold cycles: position i links to i + 1
+    and up to three of the next 16 (dest V - 1), row 1 to every vertex
+    (itself included: out-degree V, so INF + x keys enter its list), an
+    edge 2 -> 0, a self-loop at V / 2, and a negative key (-7) from V - 3
+    into V - 2, which reaches no sink (INF - 7 is kept)."""
+    import numpy as np
+
+    from alignasm_tpu_torch.ops.topk import INF
+
+    rng = np.random.default_rng(seed)
+    wk1 = np.full((B, V, V), INF, np.int64)
+
+    def keys(n):
+        return (rng.integers(0, 2**20, n).astype(np.int64) << 16) \
+            | rng.integers(0, 2, n)
+
+    for b in range(B):
+        for i in range(V - 1):
+            cols = {i + 1, *rng.integers(i + 1, min(V, i + 17),
+                                         rng.integers(0, 4)).tolist()}
+            wk1[b, i, sorted(cols)] = keys(len(cols))
+        wk1[b, 1] = keys(V)
+        wk1[b, 2, 0] = keys(1)[0]
+        wk1[b, V // 2, V // 2] = keys(1)[0]
+        wk1[b, V - 3:V - 1] = INF
+        wk1[b, V - 3, V - 2] = -7
+        wk1[b, V - 4, V - 1] = keys(1)[0]
+    return wk1, np.full(B, V - 1, np.int32)
+
+
+def check_topk(what, wk1, dest, V, ns, results, totals):
+    """The top-K walk kernel against its plain version (the torch.topk
+    composition) on one batch: bit-equal, timed with CUDA events after a
+    warm-up, its sweeps counted.  Returns the kernel's output."""
+    import torch
+
+    from alignasm_tpu_torch.ops import cuda_topk, topk
+
+    sweeps = jacobi_count()
+    got = cuda_topk.topk_walks_batch(wk1, dest, V, TOPK_K, ns, sweeps)
+    # the plain version's warm-up is one sweep at the batch's shapes; its
+    # timed run, the long one, gives the rows the kernel is held to
+    topk.topk_walks_batch_plain(wk1, dest, V, TOPK_K, 1)
+    plain, want = cuda_ms_once(
+        lambda: topk.topk_walks_batch_plain(wk1, dest, V, TOPK_K, ns))
+    if not torch.equal(got, want):
+        bad = int((got != want).any(2).any(1).sum())
+        fail(f"{what}: topk kernel disagrees with plain on {bad} contigs")
+    ms = cuda_ms(lambda: cuda_topk.topk_walks_batch(wk1, dest, V, TOPK_K,
+                                                    ns), 5)
+    B = wk1.shape[0]
+    edges = int((wk1 < topk.INF).sum())
+    bound = record(results, "topk", 0, ms, plain,
+                   nbytes_of(wk1, dest, got), 2 * edges * TOPK_K)
+    ran = int(sweeps)
+    for k, x in (("batches", 1), ("contigs", B), ("ms", ms), ("plain", plain),
+                 ("sweeps", ran), ("of", B * ns)):
+        totals[k] = totals.get(k, 0) + x
+    print(f"kernels {what} V={V} B={B} n_sweeps={ns}: topk bit-equal; "
+          f"{ms:.4f} ms (plain {plain:.4f}, the torch.topk composition; "
+          f"{bound}; {edges} edges; sweeps {ran} of {B} x {ns})", flush=True)
+    return got
+
+
+def check_eppstein(what, items, got):
+    """Each contig's out[src]: its finite keys are the sorted (score_sum
+    << 16) | anom of the port's Eppstein engine's first TOPK_K walks
+    (tests/test_topk.py's check).  Returns the number of contigs."""
+    import torch
+
+    from alignasm_tpu_torch.engine.kshortest import KShortestWalks
+    from alignasm_tpu_torch.model import distance as D
+    from alignasm_tpu_torch.ops.topk import INF
+
+    src = torch.tensor([g.src for g, _pg in items], device=got.device)
+    rows = got[torch.arange(len(items), device=got.device), src].cpu()
+    for b, (g, _pg) in enumerate(items):
+        kd = KShortestWalks(g.adj, D.CALC_SUM).solve(g.src, g.dest, TOPK_K)
+        want = sorted((D.score_sum(d) << 16) | d[D.A] for d in kd)
+        have = [int(x) for x in rows[b] if x < INF]
+        if have != want:
+            fail(f"{what}: contig {b} ({g.n_vertices} vertices): top-K keys "
+                 f"{have} differ from the Eppstein engine's {want}")
+    return len(items)
+
+
+def phase_topk(packed, device, results):
+    """The top-K walk kernel (a library entry, no engine path calls it) on
+    long2000's packed contigs (n_sweeps each batch's largest vertex
+    count, more than its longest path), on synth_hard's contigs as
+    tests/test_topk.py picks them (n_sweeps their largest n + 2) and on a
+    seeded batch with cycles (INF + x keys selected), each held to the
+    plain version; every long2000 and synth_hard contig's out[src] held
+    to the Eppstein engine."""
+    import numpy as np
+    import torch
+
+    from alignasm_tpu_torch.config import DEFAULT_CONFIG
+    from alignasm_tpu_torch.engine.device import pack_graph
+    from alignasm_tpu_torch.engine.graph import build_graph
+    from alignasm_tpu_torch.io.paf import read_paf
+    from alignasm_tpu_torch.ops.topk import INF, pack_edge_keys
+
+    hard = []
+    for contig in read_paf(str(ROOT / "tests" / "data" /
+                               "synth_hard.paf")).contigs:
+        if 2 <= len(contig) <= 24:
+            g = build_graph(contig, DEFAULT_CONFIG)
+            hard.append((g, pack_graph(g)))
+    corpora = (("long2000", [(pg.g, pg) for _i, pg in packed],
+                lambda gs: max(g.n_vertices for g in gs)),
+               ("synth_hard", hard, lambda gs: max(g.n + 2 for g in gs)))
+    totals, agreed, t0 = {}, 0, time.perf_counter()
+    for name, items, n_sweeps in corpora:
+        for V, chunk, ns in topk_batches(items, n_sweeps):
+            wk1 = torch.from_numpy(np.stack(
+                [pack_edge_keys(pg, V) for _g, pg in chunk])).to(device)
+            dest = torch.tensor([g.dest for g, _pg in chunk],
+                                dtype=torch.int32, device=device)
+            got = check_topk(name, wk1, dest, V, ns, results, totals)
+            agreed += check_eppstein(f"{name} V={V}", chunk, got)
+    wk1, dest = (torch.from_numpy(a).to(device) for a in topk_cycle_batch(12))
+    got = check_topk("cycles", wk1, dest, 64, 64, results, totals)
+    if not bool(((got != INF) & ((got - INF).abs() < 2**40)).any()):
+        fail("topk cycles: no INF + x key was selected")
+    print(f"topk: {totals['batches']} batches, {totals['contigs']} contigs: "
+          f"kernel {totals['ms']:.4f} ms, plain {totals['plain']:.4f} ms "
+          f"(the torch.topk composition), bound "
+          f"{results['topk']['bound_ms']:.4f} ms; sweeps {totals['sweeps']} "
+          f"of {totals['of']}; out[src] = the Eppstein engine's first "
+          f"{TOPK_K} walks on {agreed} contigs (long2000 and synth_hard); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def sparse64_bucket(seed, B=256, V=512):
@@ -1603,7 +1772,8 @@ def phases_one_card(paths, qs_paf, cfg, device, results, tmp, card):
     cfg16 = dataclasses.replace(cfg, device_max_v=16384)
     phase_kernels(paths, cfg, device, results)
     phase_kernels(chain, cfg16, device, results)
-    phase_python_kernels(paths["long2000"], cfg, device, results)
+    packed = phase_python_kernels(paths["long2000"], cfg, device, results)
+    phase_topk(packed, device, results)
     phase_relax64_kernels(qs_paf, cfg, device, results)
     reset_launch_counts()
     always = phase_end_to_end(paths, cfg, device, tmp)

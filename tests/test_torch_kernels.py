@@ -15,6 +15,7 @@ import torch
 
 from alignasm_tpu_torch.ops import dense as tdense
 from alignasm_tpu_torch.ops.dense import ANOM_SHIFT
+from alignasm_tpu_torch.ops.topk import INF as TOPK_INF
 from alignasm_tpu_torch.ops.wire import (
     as_device, ragged_to_device, wire16_to_device,
 )
@@ -1085,3 +1086,136 @@ def test_shard_relax_kernel_over_every_visible_card(cuda_device, route):
     want = tmesh.edge_sharded_sp(("cpu",) * n, args, 700, 1024, dest)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# int64 keys at the edges of the order: -2^63 (top_k(-cand) sorts it last),
+# around 0, INF and past it, so that sums wrap
+TOPK_EXTREMES = np.array([-2**63, -2**63 + 1, -2**62, -1, 0, 1, 2**61,
+                          2**62 - 1, 2**62, 2**63 - 1], dtype=np.int64)
+
+
+def _topk_case(B, V, seed):
+    """Top-K walk inputs: (B, V, V) int64 packed keys ``(s << 16) | a``
+    (s < 2^20, a < 2) and (B,) int32 dest, contig b of flavour b % 8 on a
+    DAG (position i links to i + 1 and up to three of the next 16; dest
+    V - 1): 0, 1 the DAG; 2 a row of out-degree V - 1; 3 cells above INF
+    (no edge); 4 a row of out-degree V, a self-loop among them; 5 a cycle
+    (2 -> 0), a self-loop and a negative key V-3 -> V-2 into a vertex that
+    reaches no sink (INF - 7 is kept at any K); 6 every cell drawn from
+    ``TOPK_EXTREMES`` (sums wrap, -2^63 is selected); 7 a dest out of [0,
+    V) or negative (the initial 0 counted from the end, no reset)."""
+    rng = np.random.default_rng(seed)
+    wk1 = np.full((B, V, V), TOPK_INF, np.int64)
+    dest = np.full(B, V - 1, np.int32)
+
+    def keys(n):
+        return (rng.integers(0, 2**20, n).astype(np.int64) << 16) \
+            | rng.integers(0, 2, n)
+
+    for b in range(B):
+        kind = b % 8
+        if kind == 6:
+            wk1[b] = TOPK_EXTREMES[rng.integers(0, len(TOPK_EXTREMES),
+                                                (V, V))]
+            continue
+        for i in range(V - 1):
+            cols = {i + 1, *rng.integers(i + 1, min(V, i + 17),
+                                         rng.integers(0, 4)).tolist()}
+            wk1[b, i, sorted(cols)] = keys(len(cols))
+        if kind == 2:
+            wk1[b, 0, 1:] = keys(V - 1)
+        elif kind == 3:
+            cells = rng.integers(0, V, (2, V))
+            wk1[b, cells[0], cells[1]] = rng.integers(TOPK_INF, 2**63 - 1, V)
+        elif kind == 4:
+            wk1[b, 1] = keys(V)
+        elif kind == 5 and V >= 4:
+            wk1[b, 2, 0] = keys(1)[0]
+            wk1[b, V // 2, V // 2] = keys(1)[0]
+            wk1[b, V - 3] = TOPK_INF
+            wk1[b, V - 2] = TOPK_INF
+            wk1[b, V - 3, V - 2] = -7
+            wk1[b, V - 4, V - 1] = keys(1)[0]
+        elif kind == 7:
+            dest[b] = rng.choice([-1, -V, V, V + 3, int(rng.integers(0, V))])
+    return wk1, dest
+
+
+def _topk_extremes(B, V, seed):
+    """Tiny contigs whose every cell is drawn from ``TOPK_EXTREMES`` and
+    whose dest lies anywhere in [-V - 1, V]: rows of out-degree V, where
+    -2^63 (top_k's last) and wrapped sums are selected."""
+    rng = np.random.default_rng(seed)
+    wk1 = TOPK_EXTREMES[rng.integers(0, len(TOPK_EXTREMES), (B, V, V))]
+    return wk1, rng.integers(-V - 1, V + 1, B).astype(np.int32)
+
+
+# (V, K, seed) of _topk_extremes batches (B = 64, 4 sweeps) that select -2^63
+TOPK_EXTREME_SEEDS = [(1, 1, 0), (2, 2, 3), (2, 4, 3), (3, 2, 39)]
+
+
+def _inf_plus_x(out):
+    """Whether ``out`` holds a key INF + x, x != 0 (within 2^40 of INF)."""
+    return bool(((out != TOPK_INF) & ((out - TOPK_INF).abs() < 2**40)).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 16])
+@pytest.mark.parametrize("V,ns", [(8, 8), (33, 33), (64, 64), (64, 1),
+                                  (64, 0), (128, 128), (256, 256),
+                                  (512, 512)])
+def test_topk_kernel_matches_plain_on_the_card(cuda_device, V, K, ns):
+    """The top-K walk kernel bit-equals its plain version on ``_topk_case``
+    batches (B = 8, every flavour: rows past the kernel's 16 edges kept in
+    shared memory read in place, INF + x selected, wrapped sums, -2^63,
+    odd dests), and counts the sweeps it ran: at least one a contig when
+    n_sweeps >= 1, at most n_sweeps."""
+    from alignasm_tpu_torch.ops import _build, cuda_topk, topk
+
+    B = 8
+    wk1, dest = _to(cuda_device, *_topk_case(B, V, 70 + V + ns))
+    sweeps = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    n = cuda_topk.topk_walks_batch.launches
+    got = topk.topk_walks_batch(wk1, dest, V, K, ns, sweeps)
+    assert cuda_topk.topk_walks_batch.launches == n + 1
+    want = topk.topk_walks_batch_plain(wk1, dest, V, K, ns)
+    assert torch.equal(got, want)
+    assert min(ns, 1) * B <= int(sweeps) <= ns * B
+    if ns >= 1:
+        assert _inf_plus_x(want[5])
+    assert _build.load_library().aln_topk_smem_bytes(V, K) \
+        == cuda_topk.smem_bytes(V, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,K,seed", TOPK_EXTREME_SEEDS)
+def test_topk_kernel_extremes_on_the_card(cuda_device, V, K, seed):
+    """The kernel bit-equals its plain version on ``_topk_extremes``
+    (B = 64, 4 sweeps), each batch one where -2^63 is selected."""
+    from alignasm_tpu_torch.ops import cuda_topk, topk
+
+    wk1, dest = _to(cuda_device, *_topk_extremes(64, V, seed))
+    got = cuda_topk.topk_walks_batch(wk1, dest, V, K, 4)
+    want = topk.topk_walks_batch_plain(wk1, dest, V, K, 4)
+    assert torch.equal(got, want)
+    assert bool((want == -2**63).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,K", [(512, 18), (1024, 16), (2048, 1)])
+def test_topk_kernel_raises_past_shared_memory(cuda_device, V, K):
+    """A (V, K) whose keys and edges outgrow a block's 227 KB of shared
+    memory raises ValueError, naming the limit, before any launch; V = 512
+    at K = 17 runs."""
+    from alignasm_tpu_torch.ops import cuda_topk
+
+    n = cuda_topk.topk_walks_batch.launches
+    wk1 = torch.full((1, V, V), TOPK_INF, dtype=torch.int64,
+                     device=cuda_device)
+    dest = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_topk.topk_walks_batch(wk1, dest, V, K, 2)
+    assert cuda_topk.topk_walks_batch.launches == n
+    ok = cuda_topk.topk_walks_batch(wk1[:, :512, :512].contiguous(), dest,
+                                    512, 17, 2)
+    assert ok[0, 0, 0] == 0 and (ok[0, 1:] == TOPK_INF).all()
