@@ -8,9 +8,12 @@ on the card), a call adds to it, on its stream, the sweeps the kernel ran
 summed over the contigs: each contig stops at the first sweep that
 changes none of its keys.
 
-A block holds a contig's double-buffered keys and its compacted edges in
-shared memory, ``smem_bytes(V, K)`` bytes, at most ``SMEM_MAX``: V <= 512
-at K <= 17 (V <= 256 at K <= 45); a larger (V, K) raises ValueError.
+A block holds a contig's keys, its compacted edges (a CSR of
+``EDGES_PER_VERTEX`` V edges), its active-row lists and masks and a few
+staging rows in shared memory, ``smem_bytes(V, K)`` bytes, at most
+``SMEM_MAX``: V <= 512 at K <= 49, V <= 256 at K <= 106, V <= 1024 at
+K <= 21, V <= 2048 at K <= 7; a larger (V, K) raises ValueError.  The
+kernel also uses the output tensor as scratch until it writes the result.
 """
 
 from __future__ import annotations
@@ -20,15 +23,28 @@ import torch
 from alignasm_tpu_torch.ops import _build
 from alignasm_tpu_torch.ops.cuda_sweep import check_jacobi, ptr
 
-ROW_CAP = 16             # csrc/topk.cu kRowCap
+ROW_CAP = 32             # csrc/topk.cu kRowCap: edges a row keeps in the CSR
+EDGES_PER_VERTEX = 4     # csrc/topk.cu kEdgesPerVertex: the CSR's budget
 SMEM_MAX = 227 * 1024    # csrc/topk.cu kSmemMax
+MAX_THREADS = 512        # csrc/topk.cu kMaxThreads
+GROUP_LANES = 8          # csrc/topk.cu kGroupLanes: lanes a row at most
 I32_MAX = 2**31 - 1
 
 
 def smem_bytes(V: int, K: int) -> int:
-    """csrc/topk.cu smem_bytes(): two (V, K | 1) int64 key buffers, and
-    per vertex ROW_CAP keys, ROW_CAP uint16 columns and an int32 degree."""
-    return V * (16 * (K | 1) + 10 * ROW_CAP + 4)
+    """csrc/topk.cu layout(V, K).total: the (V, K) int64 keys, the CSR (an
+    int64 key and a uint16 column for each of EDGES_PER_VERTEX V edges),
+    the staging rows (a row of K keys for each lane group, K <= 32) or the
+    warps' compaction buffers, whichever is larger, two V-bit
+    masks, four counters, and per vertex a uint16 row start, degree and
+    two active-list entries."""
+    threads = MAX_THREADS if V >= MAX_THREADS else (V + 31) // 32 * 32
+    lanes = min(1 << (K - 1).bit_length(), GROUP_LANES) if K <= 32 else 0
+    stage = threads // lanes if lanes else 0
+    E = EDGES_PER_VERTEX * V
+    staging = max(8 * stage * K, threads // 32 * ROW_CAP * 10)
+    return (8 * V * K + 10 * E + staging + 8 * ((V + 31) // 32) + 16
+            + 8 * V)
 
 
 def _check(wk1, dest, V: int, K: int, n_sweeps: int):
@@ -49,8 +65,9 @@ def _check(wk1, dest, V: int, K: int, n_sweeps: int):
     if smem_bytes(V, K) > SMEM_MAX:
         raise ValueError(
             f"V = {V}, K = {K} needs {smem_bytes(V, K)} bytes of shared "
-            f"memory a block (16 V (K | 1) + {10 * ROW_CAP + 4} V), over "
-            f"the {SMEM_MAX} it holds: V <= 512 at K <= 17")
+            f"memory a block (8 V K keys, {10 * EDGES_PER_VERTEX + 8} V of "
+            f"edges and lists, staging rows), over the {SMEM_MAX} it "
+            f"holds: V <= 512 at K <= 49, V <= 1024 at K <= 21")
     if n_sweeps > I32_MAX:
         raise ValueError(f"n_sweeps must fit int32, got {n_sweeps}")
     _build.require(wk1, "wk1", torch.int64, 3)

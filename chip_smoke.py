@@ -37,7 +37,9 @@ Run from the root of a checkout, on a machine with a CUDA device:
    count), on synth_hard's contigs as tests/test_topk.py picks them and
    on a seeded batch with cycles and self-loops (INF + x keys selected),
    bit-equal to ``topk_walks_batch_plain`` (the torch.topk composition),
-   its sweeps counted; every long2000 and synth_hard contig's
+   its sweeps counted (long2000's must sum to the literal loop's 217,110;
+   the V = 512 batch's time over its slowest contig's sweeps is printed
+   as the µs a sweep); every long2000 and synth_hard contig's
    ``out[src]`` held to the Eppstein engine's first 16 walks.  Each
    sweep-solve and relaxation bucket runs once more with its hint
    reversed, so that check (a) sends
@@ -253,10 +255,12 @@ SP64_OPS = 56
 SCAN_OPS = 25        # per needed cell: three reduction rounds a row
 FOLD_OPS = 15        # blocked solve: per needed cell, folded once
 # The top-K walk kernel's batches: contigs a batch, keys a vertex, and the
-# largest V (csrc/topk.cu holds V <= 512 at K = 16 in shared memory).
+# largest V (csrc/topk.cu holds V <= 512 at K <= 49 in shared memory).
 # Its bound counts one reverse-topological pass: K adds and K compares a
-# valid edge.
+# valid edge.  long2000's contigs stop at their fixed points after
+# TOPK_LONG2000_SWEEPS sweeps in all, the literal loop's count.
 TOPK_B, TOPK_K, TOPK_MAX_V = 256, 16, 512
+TOPK_LONG2000_SWEEPS = 217_110
 # The sweep solve's largest V of its register pass (csrc/sweep_dense.cu
 # kRegV); above it the workspace pass runs.
 MAX_PASS_V = 256
@@ -791,7 +795,7 @@ def topk_cycle_batch(seed, B=TOPK_B, V=64):
 def check_topk(what, wk1, dest, V, ns, results, totals):
     """The top-K walk kernel against its plain version (the torch.topk
     composition) on one batch: bit-equal, timed with CUDA events after a
-    warm-up, its sweeps counted.  Returns the kernel's output."""
+    warm-up, its sweeps counted.  Returns the kernel's output and time."""
     import torch
 
     from alignasm_tpu_torch.ops import cuda_topk, topk
@@ -819,7 +823,22 @@ def check_topk(what, wk1, dest, V, ns, results, totals):
     print(f"kernels {what} V={V} B={B} n_sweeps={ns}: topk bit-equal; "
           f"{ms:.4f} ms (plain {plain:.4f}, the torch.topk composition; "
           f"{bound}; {edges} edges; sweeps {ran} of {B} x {ns})", flush=True)
-    return got
+    return got, ms
+
+
+def topk_slowest(wk1, dest, V, ns):
+    """The most sweeps one contig of the batch runs, each launched alone
+    (the batch runs in one wave, so its time is about that many
+    sweeps)."""
+    from alignasm_tpu_torch.ops import cuda_topk
+
+    most = 0
+    for b in range(wk1.shape[0]):
+        sweeps = jacobi_count()
+        cuda_topk.topk_walks_batch(wk1[b:b + 1], dest[b:b + 1], V, TOPK_K,
+                                   ns, sweeps)
+        most = max(most, int(sweeps))
+    return most
 
 
 def check_eppstein(what, items, got):
@@ -872,15 +891,25 @@ def phase_topk(packed, device, results):
                ("synth_hard", hard, lambda gs: max(g.n + 2 for g in gs)))
     totals, agreed, t0 = {}, 0, time.perf_counter()
     for name, items, n_sweeps in corpora:
+        before = totals.get("sweeps", 0)
         for V, chunk, ns in topk_batches(items, n_sweeps):
             wk1 = torch.from_numpy(np.stack(
                 [pack_edge_keys(pg, V) for _g, pg in chunk])).to(device)
             dest = torch.tensor([g.dest for g, _pg in chunk],
                                 dtype=torch.int32, device=device)
-            got = check_topk(name, wk1, dest, V, ns, results, totals)
+            got, ms = check_topk(name, wk1, dest, V, ns, results, totals)
             agreed += check_eppstein(f"{name} V={V}", chunk, got)
+            if name == "long2000" and V == TOPK_MAX_V and len(chunk) == TOPK_B:
+                most = topk_slowest(wk1, dest, V, ns)
+                print(f"topk long2000 V={V} B={TOPK_B}: {ms:.4f} ms, its "
+                      f"slowest contig {most} sweeps: {1e3 * ms / most:.3f} "
+                      f"us a sweep", flush=True)
+        if name == "long2000" and \
+                totals["sweeps"] - before != TOPK_LONG2000_SWEEPS:
+            fail(f"topk: long2000 ran {totals['sweeps'] - before} sweeps, "
+                 f"not the literal loop's {TOPK_LONG2000_SWEEPS}")
     wk1, dest = (torch.from_numpy(a).to(device) for a in topk_cycle_batch(12))
-    got = check_topk("cycles", wk1, dest, 64, 64, results, totals)
+    got, _ms = check_topk("cycles", wk1, dest, 64, 64, results, totals)
     if not bool(((got != INF) & ((got - INF).abs() < 2**40)).any()):
         fail("topk cycles: no INF + x key was selected")
     print(f"topk: {totals['batches']} batches, {totals['contigs']} contigs: "

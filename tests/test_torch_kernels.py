@@ -1150,6 +1150,36 @@ def _topk_extremes(B, V, seed):
     return wk1, rng.integers(-V - 1, V + 1, B).astype(np.int32)
 
 
+def _topk_budget_case(B, V, seed):
+    """Top-K walk inputs past csrc/topk.cu's CSR budget of 4 V edges: every
+    row links to 5-32 random columns (cycles and self-loops included), row
+    1 to 33 (past the 32 edges a CSR row holds), dest V - 1, so the CSR
+    fills and the rows after it read their edges in place."""
+    rng = np.random.default_rng(seed)
+    wk1 = np.full((B, V, V), TOPK_INF, np.int64)
+    for b in range(B):
+        for u in range(V):
+            n = 33 if u == 1 else int(rng.integers(5, 33))
+            cols = rng.choice(V, min(n, V), replace=False)
+            wk1[b, u, cols] = (rng.integers(0, 2**20, len(cols)).astype(
+                np.int64) << 16) | rng.integers(0, 2, len(cols))
+    return wk1, np.full(B, V - 1, np.int32)
+
+
+def _topk_fixpoint(plain, ran, ns):
+    """Whether ``ran`` is one contig's fixed-point sweep count: the state
+    after ``ran`` plain sweeps equals the one after ``ran - 1`` (unless it
+    ran all ``ns``), and the one after ``ran - 1`` differs from the one
+    after ``ran - 2``.  ``plain(n)`` is the contig's state after n sweeps;
+    a sweep that changes nothing leaves every later one equal, so this is
+    the first sweep that changes nothing."""
+    if not min(ns, 1) <= ran <= ns:
+        return False
+    if ran < ns and not torch.equal(plain(ran), plain(ran - 1)):
+        return False
+    return ran < 2 or not torch.equal(plain(ran - 1), plain(ran - 2))
+
+
 # (V, K, seed) of _topk_extremes batches (B = 64, 4 sweeps) that select -2^63
 TOPK_EXTREME_SEEDS = [(1, 1, 0), (2, 2, 3), (2, 4, 3), (3, 2, 39)]
 
@@ -1160,16 +1190,18 @@ def _inf_plus_x(out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [1, 16])
-@pytest.mark.parametrize("V,ns", [(8, 8), (33, 33), (64, 64), (64, 1),
-                                  (64, 0), (128, 128), (256, 256),
-                                  (512, 512)])
+@pytest.mark.parametrize("V,K,ns", [
+    *((V, K, ns) for K in (1, 16) for V, ns in (
+        (8, 8), (33, 33), (64, 64), (64, 1), (64, 0), (128, 128),
+        (256, 256), (512, 512))),
+    (512, 17, 512), (256, 45, 256), (64, 4, 64), (64, 32, 64)])
 def test_topk_kernel_matches_plain_on_the_card(cuda_device, V, K, ns):
     """The top-K walk kernel bit-equals its plain version on ``_topk_case``
-    batches (B = 8, every flavour: rows past the kernel's 16 edges kept in
-    shared memory read in place, INF + x selected, wrapped sums, -2^63,
-    odd dests), and counts the sweeps it ran: at least one a contig when
-    n_sweeps >= 1, at most n_sweeps."""
+    batches (B = 8, every flavour: rows past the 32 edges a CSR row holds
+    read in place, INF + x selected, wrapped sums, -2^63, odd dests), at
+    the edges of the lane routes (K 1, 4, 16, 17, 32) and of a thread a
+    row (K = 45), and counts the sweeps it ran: each contig, launched
+    alone, its plain version's fixed point, and the batch their sum."""
     from alignasm_tpu_torch.ops import _build, cuda_topk, topk
 
     B = 8
@@ -1180,11 +1212,44 @@ def test_topk_kernel_matches_plain_on_the_card(cuda_device, V, K, ns):
     assert cuda_topk.topk_walks_batch.launches == n + 1
     want = topk.topk_walks_batch_plain(wk1, dest, V, K, ns)
     assert torch.equal(got, want)
-    assert min(ns, 1) * B <= int(sweeps) <= ns * B
+    assert int(sweeps) == _topk_sweeps_at_fixpoint(wk1, dest, V, K, ns)
     if ns >= 1:
         assert _inf_plus_x(want[5])
     assert _build.load_library().aln_topk_smem_bytes(V, K) \
         == cuda_topk.smem_bytes(V, K)
+
+
+def _topk_sweeps_at_fixpoint(wk1, dest, V, K, ns):
+    """The kernel's sweeps of each contig launched alone, each held to its
+    plain version's fixed point (``_topk_fixpoint``); returns their sum."""
+    from alignasm_tpu_torch.ops import cuda_topk, topk
+
+    total = 0
+    for b in range(wk1.shape[0]):
+        one = (wk1[b:b + 1], dest[b:b + 1], V, K)
+        sweeps = torch.zeros(1, dtype=torch.int32, device=wk1.device)
+        cuda_topk.topk_walks_batch(*one, ns, sweeps)
+        ran = int(sweeps)
+        assert _topk_fixpoint(
+            lambda n: topk.topk_walks_batch_plain(*one, n), ran, ns), (b, ran)
+        total += ran
+    return total
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,K", [(64, 16), (512, 16), (256, 45)])
+def test_topk_kernel_past_the_edge_budget_on_the_card(cuda_device, V, K):
+    """The kernel bit-equals its plain version on ``_topk_budget_case``
+    (B = 4, n_sweeps = V): rows of 5-33 edges, more than the CSR's 4 V,
+    so the rows after it read their edges in place; its sweeps are each
+    contig's plain fixed point."""
+    from alignasm_tpu_torch.ops import cuda_topk, topk
+
+    wk1, dest = _to(cuda_device, *_topk_budget_case(4, V, 5 + V + K))
+    sweeps = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = cuda_topk.topk_walks_batch(wk1, dest, V, K, V, sweeps)
+    assert torch.equal(got, topk.topk_walks_batch_plain(wk1, dest, V, K, V))
+    assert int(sweeps) == _topk_sweeps_at_fixpoint(wk1, dest, V, K, V)
 
 
 @pytest.mark.gpu
@@ -1202,11 +1267,11 @@ def test_topk_kernel_extremes_on_the_card(cuda_device, V, K, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("V,K", [(512, 18), (1024, 16), (2048, 1)])
+@pytest.mark.parametrize("V,K", [(512, 50), (1024, 22), (2048, 8)])
 def test_topk_kernel_raises_past_shared_memory(cuda_device, V, K):
-    """A (V, K) whose keys and edges outgrow a block's 227 KB of shared
-    memory raises ValueError, naming the limit, before any launch; V = 512
-    at K = 17 runs."""
+    """A (V, K) whose keys, edges and lists outgrow a block's 227 KB of
+    shared memory raises ValueError, naming the limit, before any launch;
+    V = 512 at K = 49 (and at K = 17, the old limit) runs."""
     from alignasm_tpu_torch.ops import cuda_topk
 
     n = cuda_topk.topk_walks_batch.launches
@@ -1216,6 +1281,7 @@ def test_topk_kernel_raises_past_shared_memory(cuda_device, V, K):
     with pytest.raises(ValueError, match="shared memory"):
         cuda_topk.topk_walks_batch(wk1, dest, V, K, 2)
     assert cuda_topk.topk_walks_batch.launches == n
-    ok = cuda_topk.topk_walks_batch(wk1[:, :512, :512].contiguous(), dest,
-                                    512, 17, 2)
-    assert ok[0, 0, 0] == 0 and (ok[0, 1:] == TOPK_INF).all()
+    for k in (17, 49):
+        ok = cuda_topk.topk_walks_batch(wk1[:, :512, :512].contiguous(),
+                                        dest, 512, k, 2)
+        assert ok[0, 0, 0] == 0 and (ok[0, 1:] == TOPK_INF).all()

@@ -35,7 +35,8 @@ from alignasm_tpu_torch.runtime.scheduler import _next_pow2
 from alignasm_tpu_torch.testing.synth import generate_paf
 from tests.conftest import DATA_DIR
 from tests.test_torch_kernels import (
-    TOPK_EXTREME_SEEDS, _inf_plus_x, _topk_case, _topk_extremes,
+    TOPK_EXTREME_SEEDS, _inf_plus_x, _topk_budget_case, _topk_case,
+    _topk_extremes, _topk_fixpoint,
 )
 
 INF = topk.INF
@@ -181,39 +182,85 @@ def test_topk_matches_eppstein_prefix(corpus, long_corpus):
 # --- csrc/topk.cu emulated ---------------------------------------------
 
 M64 = 2**64 - 1
-TOP = 2**63  # -2^63's bits, the order's last value
+BIAS = 2**63 - 1     # csrc/topk.cu kBias: ord(x) = x + BIAS (mod 2^64)
+LAST = M64           # ord(-2^63), the order's last value
+ORD_INF = INF + BIAS
 
 
 def _ord(x):
-    """csrc/topk.cu ord(): top_k(-cand)'s order as an unsigned one."""
-    return ((x - 1) & M64) ^ TOP
+    """csrc/topk.cu's key space: top_k(-cand)'s order as an unsigned one,
+    in which adding an edge key commutes (ord(x + k) = ord(x) + k)."""
+    return (x + BIAS) & M64
+
+
+def _route(Kk):
+    """csrc/topk.cu lanes_of() and keys_of(): a row's lanes G and keys a
+    lane R (N = G R = next_pow2(K), G at most GROUP_LANES); (0, 0), a
+    thread a row, for K > 32."""
+    if Kk > 32:
+        return 0, 0
+    n = 1 << (Kk - 1).bit_length()
+    G = min(n, cuda_topk.GROUP_LANES)
+    return G, n // G
+
+
+def _step(x, L, key, Kk, first, stats):
+    """csrc/topk.cu Group::step() for a group with an edge, element by
+    element (element e = r G + l is lane l's register r; a stride of G or
+    more is a compare-exchange between a lane's registers, a smaller one
+    a shuffle): x holds the row's N keys (ascending), L the child's Kk
+    keys; returns x's keys of the N smallest of x and key + L.  A run
+    whose sum carries on some elements but not all is rotated back to
+    sorted order; the row's first run is an element-wise minimum, a
+    later one the minimum against the run reversed, sorted by log2 N
+    compare-exchange stages."""
+    N = len(x)
+    o = [L[e] if e < Kk else LAST for e in range(N)]
+    c = [(o[e] + key) & M64 if e < Kk else LAST for e in range(N)]
+    carry = [e for e in range(Kk) if c[e] < o[e]]
+    if 0 < len(carry) < Kk:
+        m = carry[0]
+        stats["rotated"] += 1
+        c = [c[(e + m) % Kk] if e < Kk else LAST for e in range(N)]
+    if first:
+        return [min(a, b) for a, b in zip(x, c)]
+    y = c[::-1]
+    if not any(b < a for a, b in zip(x, y)):
+        return x
+    x = [min(a, b) for a, b in zip(x, y)]
+    s = N // 2
+    while s:
+        x = [max(x[e], x[e ^ s]) if e & s else min(x[e], x[e ^ s])
+             for e in range(N)]
+        s //= 2
+    return x
 
 
 def _insert(r, c, Kk):
-    oc = _ord(c)
-    if oc >= _ord(r[Kk - 1]):
+    if c >= r[Kk - 1]:
         return
     p = Kk - 1
-    while p > 0 and _ord(r[p - 1]) > oc:
+    while p > 0 and r[p - 1] > c:
         r[p] = r[p - 1]
         p -= 1
     r[p] = c
 
 
 def _merge_list(r, L, key, Kk):
-    """csrc/topk.cu merge_list(): a sorted run merges from the back after
-    counting the m candidates that enter, a wrapped one by insertion."""
+    """csrc/topk.cu merge_list(), a thread's merge (K > 32): a sorted run
+    merges from the back after counting the m candidates that enter, a
+    run whose sum carries inside it by insertion."""
     c = [(key + x) & M64 for x in L]
-    if _ord(c[0]) > _ord(c[-1]):
+    if c[0] > c[-1]:
         for x in c:
             _insert(r, x, Kk)
         return
     m = 0
-    while m < Kk and _ord(c[m]) < _ord(r[Kk - 1 - m]):
+    while m < Kk and c[m] < r[Kk - 1 - m]:
         m += 1
     i, p, j = Kk - m - 1, Kk - 1, m - 1
     while j >= 0:
-        if i >= 0 and _ord(r[i]) > _ord(c[j]):
+        if i >= 0 and r[i] > c[j]:
             r[p] = r[i]
             i -= 1
         else:
@@ -223,74 +270,144 @@ def _merge_list(r, L, key, Kk):
 
 
 def emulate_contig(w, d, V, Kk, ns):
-    """One CTA of csrc/topk.cu: the rows' edges (at most ROW_CAP kept,
-    a denser row read from w in place each sweep), each row filled with
-    its virtual candidates (INF under out-degree V, else -2^63), its
-    edges' lists merged in, dest's row written directly, the sweeps
-    stopped at the first that changes nothing.  Returns (keys, sweeps)."""
+    """One CTA of csrc/topk.cu: each row's valid cells kept in the CSR
+    when it has at most ROW_CAP and the 4 V budget holds them (the rows
+    claimed in vertex order here, in the warps' order on the card), else
+    read in place; the keys in ord space; sweep 1 computes every row but
+    dest's, a later sweep the rows read in place and those with a child
+    that changed in the sweep before; each row starts as its virtual
+    candidates (INF under out-degree V, else -2^63) and merges its
+    children's lists, by a group of lanes (``_step``, K <= 32) or by a
+    thread (``_merge_list``); the sweeps stop at the first that changes
+    no row.  (On the card a warp's groups step together, a group without
+    an edge feeding nothing, which changes no key.)  Returns (keys, stats): stats
+    counts the sweeps, the rows computed, the rotated runs and the rows
+    read in place."""
     w = [[int(x) for x in row] for row in w]
-    kept = []
+    csr, pool = [], 0
+    stats = dict(sweeps=0, rows=0, rotated=0, in_place=0)
     for u in range(V):
         cols = [c for c in range(V) if w[u][c] < INF]
-        kept.append((len(cols), cols if len(cols) <= cuda_topk.ROW_CAP
-                     else None))
+        fits = False
+        if len(cols) <= cuda_topk.ROW_CAP:
+            fits = pool + len(cols) <= cuda_topk.EDGES_PER_VERTEX * V
+            pool += len(cols)
+        csr.append((len(cols), cols if fits else None))
+        stats["in_place"] += not fits
     r0 = d + V if d < 0 else d
-    cur = [[0 if (j == 0 and u == r0) else INF for j in range(Kk)]
-           for u in range(V)]
-    ran = 0
+    tk = [[_ord(0) if (j == 0 and u == r0) else ORD_INF for j in range(Kk)]
+          for u in range(V)]
+    G, R = _route(Kk)
+    active = [u for u in range(V) if u != d]
     for _ in range(max(ns, 0)):
-        nxt = []
-        for u in range(V):
-            if u == d:
-                nxt.append([0] + [INF] * (Kk - 1))
-                continue
-            deg, cols = kept[u]
-            r = [INF if deg < V else TOP] * Kk
-            if cols is None:  # in place: the dense row, every sweep
+        new = {}
+        for u in active:
+            n, cols = csr[u]
+            if cols is None:  # in place: the row's valid cells, in order
                 cols = [c for c in range(V) if w[u][c] < INF]
-            for c in cols:
-                _merge_list(r, cur[c], w[u][c] & M64, Kk)
-            nxt.append(r)
-        ran += 1
-        changed = nxt != cur
-        cur = nxt
-        if not changed:
+            fill = ORD_INF if n < V else LAST
+            if G:
+                x = [fill if e < Kk else LAST for e in range(G * R)]
+                for i, c in enumerate(cols):
+                    x = _step(x, tk[c], w[u][c] & M64, Kk, i == 0, stats)
+                x = x[:Kk]
+            else:
+                x = [fill] * Kk
+                for c in cols:
+                    _merge_list(x, tk[c], w[u][c] & M64, Kk)
+            if x != tk[u]:
+                new[u] = x
+        stats["sweeps"] += 1
+        stats["rows"] += len(active)
+        if not new:
             break
-    keys = [[x - 2**64 if x >= TOP else x for x in row] for row in cur]
-    return np.array(keys, np.int64).reshape(V, Kk), ran
+        for u, x in new.items():
+            tk[u] = x
+        active = [u for u in range(V) if u != d and (
+            csr[u][1] is None or any(c in new for c in csr[u][1]))]
+    keys = [[(x - BIAS) & M64 for x in row] for row in tk]
+    keys = [[x - 2**64 if x >= 2**63 else x for x in row] for row in keys]
+    return np.array(keys, np.int64).reshape(V, Kk), stats
 
 
-@pytest.mark.parametrize("case", ["dag-8", "dense-33", "long", "extremes"])
-def test_kernel_emulation_matches_plain(case, long_corpus):
-    """The emulated kernel equals the plain version, and its sweep count is
-    the plain sweeps' fixed point: the state after ``ran`` sweeps equals
-    the one after ``ran - 1`` (unless it ran them all) and not the one
-    after ``ran - 2``.  "dense-33" has rows over the kernel's 16 edges
-    kept in shared memory (read in place)."""
+def _emulation_runs(case, long_corpus):
+    """(wk1, dest, [(V, K, n_sweeps), ...]) of an emulation case."""
     if case == "long":
         items = [it for it in long_corpus if it[2] == 64]
         wk1, dest = _batch(items)
-        runs = [(64, 16, max(g.n_vertices for g, _p, _V in items))]
-    elif case == "extremes":
-        wk1, dest = _topk_extremes(32, 2, 3)
-        runs = [(2, 2, 4), (2, 4, 4), (2, 1, 2)]
-    else:
-        V = int(case.split("-")[1])
-        wk1, dest = _topk_case(8, V, 7 + V)
-        runs = [(V, Kk, ns) for Kk in (1, 4, 16) for ns in (3, V)]
+        return wk1, dest, [(64, 16, max(g.n_vertices for g, _p, _V in items))]
+    if case == "extremes":
+        return (*_topk_extremes(32, 2, 3), [(2, 2, 4), (2, 4, 4), (2, 1, 2)])
+    if case == "minus-2-63":
+        return (*_topk_extremes(64, 3, 39), [(3, 2, 4), (3, 45, 4)])
+    if case == "wrapped":
+        wk1, dest = _topk_case(8, 16, 41)
+        return wk1[6:7], dest[6:7], [(16, 4, 16), (16, 16, 16), (16, 33, 16)]
+    if case == "dests":
+        wk1, dest = _topk_case(4, 16, 5)
+        return (np.repeat(wk1[:1], 4, 0), np.array([-1, -16, 16, 19], np.int32),
+                [(16, 4, 16), (16, 40, 16)])
+    if case == "budget":
+        return (*_topk_budget_case(2, 16, 3), [(16, 4, 16), (16, 16, 16)])
+    if case == "v32-k17":
+        return (*_topk_case(8, 32, 77), [(32, 17, 32)])
+    if case == "sweeps-0-1":
+        return (*_topk_case(8, 16, 13), [(16, 16, 0), (16, 16, 1), (16, 1, 1)])
+    V = int(case.split("-")[1])
+    return (*_topk_case(8, V, 7 + V),
+            [(V, Kk, ns) for Kk in (1, 4, 16) for ns in (3, V)])
+
+
+@pytest.mark.parametrize("case", ["dag-8", "dense-33", "long", "extremes",
+                                  "minus-2-63", "wrapped", "dests",
+                                  "budget", "v32-k17", "sweeps-0-1"])
+def test_kernel_emulation_matches_plain(case, long_corpus):
+    """The emulated kernel equals the plain version, and its sweep count is
+    the plain sweeps' fixed point (``_topk_fixpoint``).  "dense-33" has
+    rows past the 32 edges a CSR row holds (read in place); "minus-2-63"
+    selects -2^63, "wrapped" rotates runs whose sums carry, both also by a
+    thread a row (K > 32); "dests" has negative and out-of-range dests;
+    "budget" rows past the CSR's 4 V edges; "v32-k17" a 32-lane group
+    with 15 padding lanes; "sweeps-0-1" n_sweeps 0 and 1."""
+    wk1, dest, runs = _emulation_runs(case, long_corpus)
+    seen = dict(rotated=0, in_place=0, minus=False)
     for V, Kk, ns in runs:
         want = _plain(wk1, dest, V, Kk, ns)
         for b in range(wk1.shape[0]):
-            got, ran = emulate_contig(wk1[b], int(dest[b]), V, Kk, ns)
+            got, st = emulate_contig(wk1[b], int(dest[b]), V, Kk, ns)
             np.testing.assert_array_equal(got, want[b])
-            one = (wk1[b:b + 1], dest[b:b + 1], V, Kk)
-            assert 1 <= ran <= ns
-            if ran < ns:
-                np.testing.assert_array_equal(_plain(*one, ran),
-                                              _plain(*one, ran - 1))
-            if ran >= 2:
-                assert not np.array_equal(_plain(*one, ran - 1),
-                                          _plain(*one, ran - 2))
+            one = [torch.from_numpy(a) for a in (wk1[b:b + 1], dest[b:b + 1])]
+            assert _topk_fixpoint(
+                lambda n: topk.topk_walks_batch_plain(*one, V, Kk, n),
+                st["sweeps"], ns), (V, Kk, ns, b, st)
+            seen["rotated"] += st["rotated"]
+            seen["in_place"] += st["in_place"]
+        seen["minus"] |= bool((want == -2**63).any())
+    if case == "wrapped":
+        assert seen["rotated"] > 0
+    if case in ("dense-33", "budget"):
+        assert seen["in_place"] > 0
+    if case == "minus-2-63":
+        assert seen["minus"]
+    if case == "budget":  # every row fits ROW_CAP but row 1: the budget
+        assert seen["in_place"] > len(runs) * wk1.shape[0]
+
+
+def test_frontier_skips_rows(long_corpus):
+    """On the long corpus's V = 128 contigs (long2000's generator), the
+    emulated kernel computes far fewer rows than V a sweep, and its keys
+    still equal the plain version's."""
+    items = [it for it in long_corpus if it[2] == 128][:4]
+    wk1, dest = _batch(items)
+    ns = max(g.n_vertices for g, _p, _V in items)
+    want = _plain(wk1, dest, 128, K, ns)
+    rows = full = 0
+    for b in range(len(items)):
+        got, st = emulate_contig(wk1[b], int(dest[b]), 128, K, ns)
+        np.testing.assert_array_equal(got, want[b])
+        rows += st["rows"]
+        full += 128 * st["sweeps"]
+    assert len(items) == 4 and rows * 8 < full
 
 
 def test_dispatch_and_wrapper_checks():
@@ -312,13 +429,20 @@ def test_dispatch_and_wrapper_checks():
         cuda_topk.topk_walks_batch(wk1, dest, 16, 4, 8)
     with pytest.raises(ValueError, match="n_sweeps must fit int32"):
         cuda_topk.topk_walks_batch(wk1, dest, 8, 4, 2**31)
-    for V, Kk in ((512, 18), (1024, 16)):
+    for V, Kk in ((512, 50), (1024, 22)):
         big = torch.full((1, V, V), INF, dtype=torch.int64)
         with pytest.raises(ValueError, match="shared memory"):
             cuda_topk.topk_walks_batch(big, dest[:1], V, Kk, 2)
     assert cuda_topk.topk_walks_batch.launches == n
-    # the stated limits: V <= 512 at K <= 17, V <= 256 at K <= 45
-    fits = [(V, Kk) for V, Kk in ((512, 16), (512, 17), (512, 18),
-                                  (256, 45), (256, 46), (1024, 1))
+    # the stated limits: V <= 512 at K <= 49, V <= 256 at K <= 106, V <=
+    # 1024 at K <= 21, V <= 2048 at K <= 7; the old ones (V <= 512 at K <=
+    # 17, V <= 256 at K <= 45, V = 1024 at K = 1) stay inside
+    fits = [(V, Kk) for V, Kk in ((512, 17), (256, 45), (1024, 1),
+                                  (512, 49), (512, 50), (256, 106),
+                                  (256, 107), (1024, 21), (1024, 22),
+                                  (2048, 7), (2048, 8))
             if cuda_topk.smem_bytes(V, Kk) <= cuda_topk.SMEM_MAX]
-    assert fits == [(512, 16), (512, 17), (256, 45), (1024, 1)]
+    assert fits == [(512, 17), (256, 45), (1024, 1), (512, 49), (256, 106),
+                    (1024, 21), (2048, 7)]
+    # two blocks an SM at V = 512, K = 16 (228 KB an SM, 1 KB a block)
+    assert 2 * (cuda_topk.smem_bytes(512, 16) + 1024) <= 228 * 1024
