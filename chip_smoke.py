@@ -111,6 +111,20 @@ Run from the root of a checkout, on a machine with a CUDA device:
    multihost (``python -m alignasm_tpu_torch.parallel.multihost
    --local-procs 2 --device-runtime``, a gloo group over localhost) on
    long2000, files byte-equal to ``native.run``.
+7. Bench: ``python -m alignasm_tpu_torch.runtime.devbench 2000`` and
+   ``... --bigv-sweep``, each in its own process (runtime/devbench.py:
+   end_to_end, the topo / dense / sparse kernel sections and bigv, then
+   the V x B x Bk sweep of the blocked solve); both must exit 0 with every
+   section's line, no ``*_error``, no skipped section, every ``bit_equal``
+   true, each section's kernels launched in it (its ``launches``), the
+   end-to-end files byte-equal to ``native.run``'s and its forced run's
+   ``device`` count above 0.  Prints each section's headline numbers
+   beside the card's name and power limit (contigs/s auto / forced /
+   native, topo's marginal and chained µs a contig, bigv's ms and ×bound,
+   the best Bk per (V, B)).  Then, with the launch counts set to 0 just
+   before and read just after, ``graft_entry.entry()`` on the card held to
+   ``entry(device="cpu")`` on every key, and ``graft_entry.
+   dryrun_multichip`` over the mesh of phase 6.
 
 ``python3 chip_smoke.py --mesh`` runs phase 1 and phase 6 alone, over
 every visible card, with ``native.run``'s files written first and no
@@ -119,12 +133,15 @@ check of a machine with several cards: the peer copies of
 ``shard_relax`` and the data axis over separate cards run only there.
 
 Then one JSON line of per-kernel results (``launches`` counted in phase
-3, or phase 6 for ``densify_wire`` and ``shard_relax``, null for the
+3, or phase 6 for ``densify_wire`` and ``shard_relax``, phase 7's in
+``launches_bench``, null for the
 library entries: ``dense_sp``, ``topk`` and the sweep solve's slab
 entry, ``sweep_dense_slabs``; ``ms``/``plain_ms`` the kernel's and its
 plain version's times summed over every bucket it ran on in phase 2, for
 the blocked solve at the block size the scheduler picks; ``bound_ms``
-the least time the card could take for the same work, from the bytes
+the least time the card could take for the same work
+(``alignasm_tpu_torch/runtime/roofline.py``, which the bench sections
+share), from the bytes
 each input the function needs and each output moves once (for the scan
 and the blocked solve: the strict upper triangle, dest's column below
 the diagonal, the trailer row's dest and src, and the rows) and the
@@ -224,36 +241,8 @@ KERNELS = {
     "topk": ("alignasm_tpu_torch/csrc/topk.cu",
              "alignasm_tpu/ops/topk.py:35", "library"),
 }
-# The card's rates for the bound (H100 SXM data sheet, 700 W): device
-# memory, and the issue rate of 32-bit scalar operations.  Each of an SM's
-# four schedulers issues one 32-lane instruction a clock: 132 SMs x 128 a
-# clock at the 1.98 GHz of the data sheet's 67 TFLOP/s float32, which
-# counts an FMA as two operations, so 33.5e12 a second.  int32 add,
-# compare, min and max run at half that (64 a clock per SM on compute
-# capability 9.0: CUDA C++ Programming Guide, throughput of the arithmetic
-# instructions); the issue rate keeps the bound a lower bound whatever
-# the mix.
-MEM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12 / 2
-# Operations of one pass, the least work of each function: the sweep
-# kernels' vectors are DAG dynamic programs that one reverse-topological
-# pass computes, however many Jacobi sweeps a kernel runs.  Per edge of
-# the five vectors of the sweep solve and the int32 relaxation: the sum
-# and anomaly adds, a lexicographic compare (4) and two selects; the
-# floor's add and min; the walk count's add; the min-walk test's two
-# compares, and, add.
-PATH_OPS = 15
-# Per edge of dense_sp's cascade: four adds, the f32 key's two
-# conversions, clamp, division and negation, the four-key lexicographic
-# compare (10), six selects.
-DENSE_SP_OPS = 25
-# Per edge of the int64 relaxation, one pass: the four sums, the packed
-# key (2), the mapq key (3), the three-key lexicographic compare (6), six
-# selects, the floor's add and min, the walk count's add and the min-walk
-# test (4), 28 int64 operations of two 32-bit issue slots each.
-SP64_OPS = 56
-SCAN_OPS = 25        # per needed cell: three reduction rounds a row
-FOLD_OPS = 15        # blocked solve: per needed cell, folded once
+# The card's rates, the operation counts and the bounds: in
+# alignasm_tpu_torch/runtime/roofline.py, shared with runtime/devbench.py.
 # The top-K walk kernel's batches: contigs a batch, keys a vertex, and the
 # largest V (csrc/topk.cu holds V <= 512 at K <= 49 in shared memory).
 # Its bound counts one reverse-topological pass: K adds and K compares a
@@ -358,41 +347,23 @@ def record(results, name, err, ms, plain, nbytes, nops):
     """Add one call's readings to ``name``'s line: its error, kernel and
     plain times, and its bound from the bytes it moves once and the
     operations its inputs need.  Returns the call's bound as text."""
+    from alignasm_tpu_torch.runtime.roofline import bound_ms
+
     r = results[name]
     r["max_abs_err"] = max(r["max_abs_err"], err)
     r["ms"] += ms
     r["plain_ms"] += plain
-    by_bytes, by_ops = 1e3 * nbytes / MEM_BYTES_PER_S, 1e3 * nops / OPS_PER_S
+    by_bytes, by_ops = bound_ms(nbytes, nops)
     r["bound_ms"] += max(by_bytes, by_ops)
     r["bytes_ms"] += by_bytes
     r["ops_ms"] += by_ops
     return f"bound {by_bytes:.4f} ms by bytes, {by_ops:.4f} by operations"
 
 
-def nbytes_of(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def dp_cells(slabs) -> int:
-    """Cells the scan and the blocked solve need: every edge lies in a
-    slab's strict upper triangle (u < v) except those into dest, which may
-    sit anywhere, so the strict upper triangle and dest's column below the
-    diagonal."""
-    B, _, V = slabs.shape
-    dest = slabs[:, V, 0].long().clamp(0, V - 1)
-    return B * V * (V - 1) // 2 + int((V - 1 - dest).sum())
-
-
-def dp_bytes(slabs, rows) -> int:
-    """Bytes the scan and the blocked solve need, each read or written
-    once: the needed cells, the trailer row's dest and src, and the output
-    rows."""
-    return 4 * (dp_cells(slabs) + 2 * slabs.shape[0]) + nbytes_of(rows)
-
-
 def check_scan(name, V, padB, slabs, results):
     """The scan kernel against its plain version on one V <= 256 bucket."""
     from alignasm_tpu_torch.ops import cuda_topo, dense
+    from alignasm_tpu_torch.runtime.roofline import scan_work
 
     rows = cuda_topo.topo_scan_nxt8(slabs)
     rows_p = dense.solve_slab_topo_nxt8(slabs)
@@ -403,7 +374,7 @@ def check_scan(name, V, padB, slabs, results):
     ms = cuda_ms(lambda: cuda_topo.topo_scan_nxt8(slabs), 20)
     plain = cuda_ms(lambda: dense.solve_slab_topo_nxt8(slabs), 3)
     bound = record(results, "topo_scan", err, ms, plain,
-                   dp_bytes(slabs, rows), dp_cells(slabs) * SCAN_OPS)
+                   *scan_work(slabs, rows))
     return (f"topo_scan {1000 * ms / padB:.4f} us/contig (plain "
             f"{1000 * plain / padB:.4f}; {ms:.4f} vs {plain:.4f} ms/bucket; "
             f"{bound})")
@@ -418,6 +389,7 @@ def check_blocked(name, V, padB, slabs, results, by_bk):
 
     from alignasm_tpu_torch.ops import cuda_blocked, dense
     from alignasm_tpu_torch.runtime import scheduler as tsched
+    from alignasm_tpu_torch.runtime.roofline import blocked_work
 
     scan_rows = dense.solve_slab_topo_nxt16(slabs)
     parts = []
@@ -439,8 +411,7 @@ def check_blocked(name, V, padB, slabs, results, by_bk):
         bound = ""
         if picked:
             bound = "; " + record(results, "blocked_dp", err, ms, plain,
-                                  dp_bytes(slabs, rows),
-                                  dp_cells(slabs) * FOLD_OPS)
+                                  *blocked_work(slabs, rows))
         parts.append(
             f"blocked_dp Bk={Bk}{' (scheduler)' if picked else ''} "
             f"{1000 * ms / padB:.1f} us/contig (plain "
@@ -506,6 +477,7 @@ def check_slab_sweep(name, V, padB, slabs, results):
     import torch
 
     from alignasm_tpu_torch.ops import cuda_sweep, dense
+    from alignasm_tpu_torch.runtime.roofline import path_work
 
     jacobi = jacobi_count()
     rows = cuda_sweep.sweep_dense_slabs(slabs, V, jacobi=jacobi)
@@ -531,7 +503,7 @@ def check_slab_sweep(name, V, padB, slabs, results):
     plain = cuda_ms(lambda: dense.solve_slabs(slabs, V), 1)
     edges = int((slabs[:, :V] != dense.INF32).sum())
     bound = record(results, "sweep_dense_slabs", err, ms, plain,
-                   nbytes_of(slabs, rows), edges * PATH_OPS)
+                   *path_work((slabs,), rows, edges))
     return (f"sweep_dense_slabs {ms:.4f} ms (plain {plain:.4f}; {bound}; "
             f"jacobi 0; {branch})")
 
@@ -561,6 +533,7 @@ def phase_kernels(paths, cfg, device, results):
 
     from alignasm_tpu_torch.ops import cuda_densify, dense
     from alignasm_tpu_torch.runtime import scheduler as tsched
+    from alignasm_tpu_torch.runtime.roofline import densify_work
 
     by_bk = {}
     for name, paf in paths.items():
@@ -583,7 +556,7 @@ def phase_kernels(paths, cfg, device, results):
             d_ms, d_plain = cuda_ms(k_fn, 20), cuda_ms(p_fn, 5)
             wire_in = [a for a in args if isinstance(a, torch.Tensor)]
             d_bound = record(results, kname, err_d, d_ms, d_plain,
-                             nbytes_of(*wire_in, slabs), 0)
+                             *densify_work(wire_in, slabs))
             if kind == "wire16":
                 d_plain = f"{d_plain:.4f}; {d_bound}; " + check_wire16_tiles(
                     name, V, padB, args, slabs)
@@ -617,6 +590,7 @@ def check_dense_sp(bucket, sweep_rows, device, results):
     import torch
 
     from alignasm_tpu_torch.ops import cuda_dense_sp, dense_sp
+    from alignasm_tpu_torch.runtime.roofline import DENSE_SP_OPS, nbytes_of
 
     V, ns = bucket["V"], bucket["n_sweeps"]
     rows, mats, dests = [], [], []
@@ -688,6 +662,7 @@ def phase_python_kernels(paf, cfg, device, results):
     from alignasm_tpu_torch.io.paf import read_paf
     from alignasm_tpu_torch.ops import cuda_relax32, cuda_sweep, dense, relax32
     from alignasm_tpu_torch.runtime import scheduler as tsched
+    from alignasm_tpu_torch.runtime.roofline import path_work
 
     t0 = time.perf_counter()
     stats = dict(singleton=0, oversize=0)
@@ -731,8 +706,8 @@ def phase_python_kernels(paf, cfg, device, results):
                                      B, want)
         ms = cuda_ms(lambda: kernel(order, None), 20)
         plain = cuda_ms(p_fn, 1)
-        bound = record(results, kname, err, ms, plain, nbytes_of(*args, got),
-                       edges * PATH_OPS)
+        bound = record(results, kname, err, ms, plain,
+                       *path_work(args, got, edges))
         extra = ""
         if kind == "dense":
             extra = "; " + check_dense_sp(bk, got, device, results)
@@ -799,6 +774,7 @@ def check_topk(what, wk1, dest, V, ns, results, totals):
     import torch
 
     from alignasm_tpu_torch.ops import cuda_topk, topk
+    from alignasm_tpu_torch.runtime.roofline import nbytes_of
 
     sweeps = jacobi_count()
     got = cuda_topk.topk_walks_batch(wk1, dest, V, TOPK_K, ns, sweeps)
@@ -1019,6 +995,7 @@ def check_relax64(what, host_args, V, ns, device, order=None):
     import torch
 
     from alignasm_tpu_torch.ops import cuda_relax64, relax
+    from alignasm_tpu_torch.runtime.roofline import SP64_OPS, nbytes_of
 
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in host_args]
@@ -1058,6 +1035,7 @@ def phase_relax64_kernels(paf, cfg, device, results):
     whose path sums pass 2^31, with the identity hint (printed)."""
     from alignasm_tpu_torch.io.paf import read_paf
     from alignasm_tpu_torch.runtime import scheduler as tsched
+    from alignasm_tpu_torch.runtime.roofline import SP64_OPS, bound_ms
 
     t0 = time.perf_counter()
     stats = dict(singleton=0, oversize=0)
@@ -1096,8 +1074,8 @@ def phase_relax64_kernels(paf, cfg, device, results):
     print(f"sparse64 relax64 seeded V={V} B=256 {nops // SP64_OPS} edges: "
           f"bit-equal, jacobi {n_jac} (check (c)); relax64 {ms:.4f} ms "
           f"(plain {plain:.4f}; Jacobi branch {rev:.4f} ms, reversed "
-          f"hint); bound {1e3 * nbytes / MEM_BYTES_PER_S:.4f} ms by bytes, "
-          f"{1e3 * nops / OPS_PER_S:.4f} by operations", flush=True)
+          f"hint); bound {bound_ms(nbytes, nops)[0]:.4f} ms by bytes, "
+          f"{bound_ms(nbytes, nops)[1]:.4f} by operations", flush=True)
 
 
 def outputs(prefix):
@@ -1307,6 +1285,7 @@ def check_densify_wire(name, V, W, realB, k, dev, w, results):
     """densify_wire and the scan rows after it against their plain
     versions on shard ``k`` of one bucket's wire, on its mesh entry."""
     from alignasm_tpu_torch.ops import cuda_densify, cuda_topo, dense
+    from alignasm_tpu_torch.runtime.roofline import densify_wire_work
 
     k_fn = lambda: cuda_densify.densify_wire(w, V)  # noqa: E731
     p_fn = lambda: dense.densify_wire(w, V)  # noqa: E731
@@ -1321,7 +1300,7 @@ def check_densify_wire(name, V, W, realB, k, dev, w, results):
              f"plain (max_abs_err {err}, rows {err_rows})")
     ms, plain = cuda_ms(k_fn, 20), cuda_ms(p_fn, 5)
     bound = record(results, "densify_wire", err, ms, plain,
-                   nbytes_of(w, slabs), w.shape[0] * W)
+                   *densify_wire_work(w, slabs))
     print(f"mesh kernels {name} V={V} W={W} shard {k} on {dev}: "
           f"{w.shape[0]} rows of the bucket's {realB}: densify_wire "
           f"bit-equal, scan rows bit-equal; {ms:.4f} ms (plain "
@@ -1340,6 +1319,7 @@ def phase_mesh_kernels(paths, giant, cfg, mesh, results):
     from alignasm_tpu_torch.ops.cuda_shard_relax import shard_relax
     from alignasm_tpu_torch.parallel import mesh as tmesh
     from alignasm_tpu_torch.runtime import scheduler as tsched
+    from alignasm_tpu_torch.runtime.roofline import SP64_OPS, bound_ms
 
     for name in ("karyotype10k", "long2000"):
         with native.GraphExporter(
@@ -1405,8 +1385,9 @@ def phase_mesh_kernels(paths, giant, cfg, mesh, results):
                            nops)
             detail = f"{1000 * ms / rows:.4f} us a row"
         else:
-            bound = (f"bound {1e3 * nbytes / MEM_BYTES_PER_S:.4f} ms by "
-                     f"bytes, {1e3 * nops / OPS_PER_S:.4f} by operations")
+            by_bytes, by_ops = bound_ms(nbytes, nops)
+            bound = (f"bound {by_bytes:.4f} ms by bytes, {by_ops:.4f} by "
+                     f"operations")
             detail = (f"{shard_relax.sweeps} of {n_sweeps} sweeps at the "
                       f"fixpoint exit, {1000 * ms / shard_relax.sweeps:.4f} "
                       f"us a sweep")
@@ -1585,6 +1566,203 @@ def phase_multihost(paf, tmp):
     print(f"multihost long2000: 2 local ranks, gloo group at localhost:"
           f"{port}; files byte-equal to native.run; {secs:.4f} s",
           flush=True)
+
+
+# The bench phase: devbench's sections on the corpus size of the JAX
+# bench's default, run as ``python -m alignasm_tpu_torch.runtime.devbench``
+# as bench.py runs the JAX module; the kernels each section must launch.
+BENCH_CONTIGS = 2000
+BENCH_KERNELS = {"end_to_end": ("topo_scan",),
+                 "topo": ("densify_wire", "topo_scan"),
+                 "dense": ("sweep_dense",), "sparse": ("relax32",),
+                 "bigv": ("densify_ragged", "blocked_dp")}
+# the sweep's grid (devbench.bench_bigv_sweep's defaults): V x B x Bk
+SWEEP_ROWS = 2 * 3 * 3
+
+
+def devbench_lines(args, timeout):
+    """The JSON lines of ``python -m alignasm_tpu_torch.runtime.devbench
+    ARGS``, which must exit 0, and its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "alignasm_tpu_torch.runtime.devbench", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"devbench {' '.join(args)} exited {proc.returncode}: "
+             f"{proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    return [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")], secs
+
+
+def keyed(obj, pred, path=""):
+    """(path, value) of every key of the nested dicts and lists in ``obj``
+    for which ``pred(key)`` holds."""
+    items = obj.items() if isinstance(obj, dict) else enumerate(obj) \
+        if isinstance(obj, list) else ()
+    for k, v in items:
+        if isinstance(k, str) and pred(k):
+            yield f"{path}{k}", v
+        yield from keyed(v, pred, f"{path}{k}.")
+
+
+def check_bench_line(what, section, kernels):
+    """No ``*_error`` and every ``bit_equal`` true in a section's object
+    (at least one where it launches ``kernels``; end_to_end holds its
+    files to native.run's instead), and every kernel of ``kernels``
+    launched in it."""
+    errors = list(keyed(section, lambda k: k.endswith("_error")))
+    if errors:
+        fail(f"bench {what}: {errors}")
+    equal = list(keyed(section, lambda k: k == "bit_equal"))
+    if not all(v is True for _p, v in equal) or (
+            kernels and what != "end_to_end" and not equal):
+        fail(f"bench {what}: bit_equal {equal}")
+    for k in kernels:
+        if section["launches"].get(k, 0) < 1:
+            fail(f"bench {what}: kernel {k} was not launched "
+                 f"({section['launches']})")
+
+
+def phase_bench(card):
+    """devbench's sections (end_to_end, kernels, bigv, then --bigv-sweep)
+    in their own processes, each section held to its plain versions and
+    its kernels' launches read from its line; then graft_entry.entry() on
+    the card held to entry(device="cpu"), and dryrun_multichip over the
+    mesh, each with the launch counts set to 0 just before and read just
+    after.  Returns every kernel's launches in the phase."""
+    import torch
+
+    from alignasm_tpu_torch import graft_entry
+    from alignasm_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    lines, secs = devbench_lines([str(BENCH_CONTIGS)], 900)
+    if len(lines) != 5:
+        fail(f"devbench {BENCH_CONTIGS}: {len(lines)} JSON lines, expected "
+             f"three sections, the trailer and the merged object")
+    e2e, kernels, bigv, trailer, merged = lines
+    if trailer != {"sections_skipped": []}:
+        fail(f"devbench {BENCH_CONTIGS}: trailer {trailer}")
+    sections = {"end_to_end": e2e, **kernels.get("kernels", {}),
+                "bigv": bigv.get("kernels", {}).get("bigv", {})}
+    for name, want in BENCH_KERNELS.items():
+        if name not in sections:
+            fail(f"bench: no {name} section ({list(merged)})")
+        check_bench_line(name, sections[name], want)
+    check_bench_line("merged", merged, ())
+    forced = e2e["cuda_engine_forced_stats"]
+    if not e2e["files_byte_equal_native"] or forced["device"] < 1 \
+            or "device_error" in forced or e2e["reps_done"] < 1:
+        fail(f"bench end_to_end: files byte-equal "
+             f"{e2e['files_byte_equal_native']}, forced device "
+             f"{forced['device']}, reps {e2e['reps_done']}, "
+             f"{forced.get('device_error')}")
+    if e2e["launches"].get("densify_wire16", 0) \
+            + e2e["launches"].get("densify_ragged", 0) < 1:
+        fail(f"bench end_to_end: no densify launched ({e2e['launches']})")
+    print(f"bench: devbench {BENCH_CONTIGS} in {secs:.1f} s ({card})",
+          flush=True)
+    print(f"bench end_to_end N={e2e['n_contigs']}: contigs/s auto "
+          f"{e2e['cuda_engine_contigs_per_s']:.2f} (routed "
+          f"{e2e['cuda_engine_stats'].get('routed')}), forced "
+          f"{e2e['cuda_engine_forced_contigs_per_s']:.2f} (device "
+          f"{forced['device']} fallback {forced['fallback']} buckets "
+          f"{forced.get('bucket_vs')}), native in process "
+          f"{e2e['native_inproc_contigs_per_s']:.2f}; cuda_vs_native_inproc "
+          f"{e2e['cuda_vs_native_inproc']:.4f}; {e2e['reps_done']} reps; files "
+          f"byte-equal to native.run; launches {e2e['launches']} "
+          f"({e2e['device_kind']}, {e2e['power_limit']})", flush=True)
+    topo = sections["topo"]
+    marg = topo.get("marginal_s_per_contig")
+    print(f"bench kernels topo B={topo['B']} V={topo['V']}: "
+          f"{1e3 * topo['s_per_launch']:.4f} ms a launch (plain "
+          f"{1e3 * topo['plain']['s_per_launch']:.4f}), marginal "
+          + (f"{1e6 * marg:.5f} us/contig" if marg is not None
+             else topo["marginal_note"])
+          + f", chained {1e6 * topo['chained_s_per_contig']:.5f} us/contig "
+          f"at B={topo['chained_B']}; bound {topo['bound_ms']:.6f} ms "
+          f"({topo['bound_by']}), {topo['x_bound']:.1f}x, chained "
+          f"{topo['chained_x_bound']:.2f}x; bit-equal ({card})", flush=True)
+    for name in ("dense", "sparse"):
+        s = sections[name]
+        print(f"bench kernels {name} ({s['kernel']}) B={s['B']} V={s['V']} "
+              f"n_sweeps={s['n_sweeps']}: {1e3 * s['s_per_launch']:.4f} ms a "
+              f"launch (plain {1e3 * s['plain']['s_per_launch']:.4f}); bound "
+              f"{s['bound_ms']:.6f} ms ({s['bound_by']}), {s['x_bound']:.1f}x; "
+              f"jacobi {s['jacobi']} of {s['B']}; bit-equal ({card})",
+              flush=True)
+    bv, bb = sections["bigv"], sections["bigv"]["batched"]
+    print(f"bench bigv V={bv['V']} E={bv['E']} Bk={bv['Bk']}: blocked "
+          f"{1e3 * bv['blocked_s_per_launch']:.4f} ms (plain scan "
+          f"{1e3 * bv['plain_s_per_launch']:.4f}, {bv['blocked_vs_plain']:.1f}x"
+          f"), bound {bv['bound_ms']:.4f} ms, {bv['x_bound']:.1f}x; B={bb['B']} "
+          f"{1e3 * bb['s_per_launch']:.4f} ms, {1e3 * bb['s_per_contig']:.4f} "
+          f"ms/contig, {bb['x_bound']:.1f}x its bound; bit-equal ({card})",
+          flush=True)
+    counts = {}
+    for s in sections.values():
+        for k, n in s["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+
+    lines, secs = devbench_lines(["--bigv-sweep"], 900)
+    rows = [ln["bigv_sweep_row"] for ln in lines[:-1]]
+    if len(rows) != SWEEP_ROWS or lines[-1].get("rows") != rows:
+        fail(f"devbench --bigv-sweep: {len(rows)} rows, expected "
+             f"{SWEEP_ROWS} streamed and the whole result")
+    best = {}
+    for r in rows:
+        check_bench_line(f"bigv_sweep V={r['V']} B={r['B']} Bk={r['Bk']}", r,
+                         ("densify_ragged", "blocked_dp"))
+        for k, n in r["launches"].items():
+            counts[k] = counts.get(k, 0) + n
+        key = (r["V"], r["B"])
+        if key not in best or r["s_per_launch"] < best[key]["s_per_launch"]:
+            best[key] = r
+    print(f"bench: devbench --bigv-sweep in {secs:.1f} s, {len(rows)} rows "
+          f"bit-equal ({card})", flush=True)
+    for (V, B), r in sorted(best.items()):
+        each = ", ".join(f"Bk={o['Bk']} {1e3 * o['s_per_launch']:.4f}"
+                         for o in rows if (o["V"], o["B"]) == (V, B))
+        print(f"bench bigv_sweep V={V} B={B}: best Bk={r['Bk']} "
+              f"{1e3 * r['s_per_launch']:.4f} ms ({each}); "
+              f"{r['x_bound']:.1f}x its bound; first call "
+              f"{r['warm_compile_s']:.3f} s ({card})", flush=True)
+
+    reset_launch_counts()
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    entry_counts = launch_counts()
+    want_fn, want_args = graft_entry.entry(device="cpu")
+    want = want_fn(*want_args)
+    if sorted(got) != sorted(want) or not all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k].cpu(),
+                                                          want[k])
+            for k in want):
+        fail("graft_entry.entry(): the card's relaxation disagrees with "
+             "entry(device='cpu')")
+    if entry_counts["relax64"] != 1:
+        fail(f"graft_entry.entry(): relax64 launched "
+             f"{entry_counts['relax64']} times, expected once")
+    ms = cuda_ms(lambda: fn(*args), 10)
+    print(f"bench graft_entry.entry(): B={args[0].shape[0]} "
+          f"E={args[0].shape[1]} relax64 bit-equal to entry(device='cpu') on "
+          f"{len(want)} keys; {ms:.4f} ms ({card})", flush=True)
+    mesh = card_mesh()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(len(mesh), device=mesh)
+    secs = time.perf_counter() - t0
+    dry_counts = launch_counts()
+    if dry_counts["shard_relax"] < 1 or \
+            dry_counts["sweep_dense"] + dry_counts["relax32"] < 1:
+        fail(f"dryrun_multichip: the graph axis or the data axis launched "
+             f"nothing ({dry_counts})")
+    print(f"bench dryrun_multichip over {', '.join(mesh)}: {secs:.1f} s; "
+          f"launches {({k: v for k, v in dry_counts.items() if v})}",
+          flush=True)
+    return {k: counts.get(k, 0) + entry_counts[k] + dry_counts[k]
+            for k in entry_counts}
 
 
 # The routing phase: the calibration corpus's contigs (the JAX calibration's
@@ -1891,6 +2069,7 @@ def main() -> int:
         phase_mesh_profile(paths, giant, gcfg, cfg, mesh, tmp)
         if not mesh_only:
             phase_multihost(paths["long2000"], tmp)
+            counts["bench"] = phase_bench(card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = sorted(m for m in sys.modules if m in ("jax", "alignasm_tpu")
@@ -1917,6 +2096,7 @@ def main() -> int:
             "launches_auto_near_free": counts.get("auto", {}).get(k),
             "launches_resume": counts.get("resume", {}).get(k),
             "launches_mesh": counts["mesh"].get(k),
+            "launches_bench": counts.get("bench", {}).get(k),
             "path": {"native": "native plane", "python": "Python plane",
                      "mesh": "mesh: data and graph axes (phase 6)",
                      "library": "library entry (phase 2 only)"}[path]})

@@ -391,6 +391,7 @@ COPIES = (
     "engine/kshortest.py", "engine/pqvec.py", "engine/singlepiece.py",
     "io/__init__.py", "io/cs.py", "io/paf.py", "model/__init__.py",
     "model/distance.py", "model/records.py", "testing/__init__.py",
+    "testing/realism_stats.py",
 )
 # native/__init__.py: the library builds into alignasm_tpu_torch/build/
 # under a hash of its sources and flags instead of next to the sources.

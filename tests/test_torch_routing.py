@@ -395,7 +395,7 @@ def test_calibrate_on_cpu_writes_a_valid_artifact(tmp_path, monkeypatch):
     assert devbench.main(["--calibrate", "--out", str(out), "60"]) == 0
     assert json.loads(out.read_text()) == cal
     assert not os.path.exists(str(out) + ".tmp")
-    assert devbench.main([]) == 2
+    assert devbench.main(["--no-such-flag"]) == 2
 
 
 def test_calibrate_on_cuda_without_a_card_raises(monkeypatch):

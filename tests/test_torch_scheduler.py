@@ -298,9 +298,11 @@ def test_cuda_request_without_a_card_raises(tmp_path, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing every module of the port and running both its planes and
-    a resumed run on the CPU loads no JAX module and nothing of the JAX package
-    (``alignasm_tpu`` or ``alignasm_tpu.*``)."""
+    """Importing every module of the port (the device bench, its bounds and
+    the entry points by name too) and running both its planes, a resumed run
+    and the batched relaxation of ``graft_entry.entry`` on the CPU loads no
+    JAX module and nothing of the JAX package (``alignasm_tpu`` or
+    ``alignasm_tpu.*``)."""
     paf = tmp_path / "s.paf"
     paf.write_bytes((DATA / "synth50.paf").read_bytes())
     journal = tmp_path / "s.journal"
@@ -309,7 +311,13 @@ def test_port_never_imports_jax(tmp_path):
         "import alignasm_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, 'alignasm_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from alignasm_tpu_torch import cli\n"
+        "from alignasm_tpu_torch import cli, graft_entry\n"
+        "from alignasm_tpu_torch.runtime import devbench, roofline\n"
+        "from alignasm_tpu_torch.testing import realism_stats\n"
+        "fn, args = graft_entry.entry(device='cpu')\n"
+        "assert set(fn(*args)) >= {'d_s', 'cnt_min'}\n"
+        "assert roofline.mem_peak('cpu') is None\n"
+        "assert devbench.main(['--no-such-flag']) == 2\n"
         "from alignasm_tpu_torch.config import DEFAULT_CONFIG\n"
         "from alignasm_tpu_torch.io.paf import read_paf\n"
         "from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch\n"
