@@ -17,9 +17,12 @@ processes when N > 1.  When the native host plane fails (NativeError),
 the cuda engine degrades visibly to the Python plane on the parsed PAF.
 ``--resume JOURNAL`` skips contigs already in the journal (every engine;
 runtime/checkpoint.py).  ``--profile DIR`` writes a ``torch.profiler``
-trace of the section the JAX command line traces (the Python-side solve:
-``--resume``, the exact engine, the degraded cuda engine) to
-``DIR/trace.json``.
+trace to ``DIR/trace.json``: of the cuda engine from its native route on
+(the program's stage spans, ``runtime/tracing.py``, beside the card's
+kernels), else of the section the JAX command line traces (the
+Python-side solve of ``--resume``, the exact engine).  ``--progress``
+prints the engine's stats; with ``--profile`` they include the C++ host
+plane's counters, one line.
 """
 
 from __future__ import annotations
@@ -67,8 +70,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="print the engine's stats (exact engine: a "
                         "progress bar)")
     p.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler trace of the Python-side "
-                        "solve to DIR")
+                   help="write a torch.profiler trace of the solve to "
+                        "DIR/trace.json")
     p.add_argument("--resume", metavar="JOURNAL",
                    help="journal file for per-contig checkpoint/resume "
                         "(works with every --engine)")
@@ -108,6 +111,24 @@ def _profiler(out_dir: str, device):
     prof = profile(activities=acts)
     prof.__enter__()
     return prof
+
+
+def _stop_profiler(prof, out_dir: str) -> None:
+    prof.__exit__(None, None, None)
+    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+
+
+def _native_counter_line(stats) -> str | None:
+    """The host plane's counters in ``stats`` (present when the solve ran
+    under a profiler) as one line: ms and count a slot."""
+    slots = [k[len("native_"):-2] for k in stats
+             if k.startswith("native_") and k.endswith("_s")
+             and k[:-2] + "_n" in stats]
+    if not slots:
+        return None
+    return "native host plane, ms (count): " + ", ".join(
+        f"{s} {1e3 * stats[f'native_{s}_s']:.3f} ({stats[f'native_{s}_n']})"
+        for s in slots)
 
 
 def run(argv=None, device="cuda") -> int:
@@ -155,17 +176,24 @@ def run(argv=None, device="cuda") -> int:
         )
         return 0
 
+    prof = None
     if args.engine == "cuda" and not args.resume:
         from alignasm_tpu_torch.runtime.scheduler import solve_dataset_torch
 
         out_p, _alt_p, _all_p = output_paths(args.paf_loc)
+        prof = _profiler(args.profile, device) if args.profile else None
         try:
             solve_dataset_torch(
                 None, cfg, src_paths=(args.paf_loc, args.alt or None),
                 write_prefix=out_p[: -len(".aln.paf")], device=device)
+            if prof is not None:
+                _stop_profiler(prof, args.profile)
             stats = solve_dataset_torch.last_stats
             if args.progress:
                 print(f"device engine stats: {stats}")
+                line = _native_counter_line(stats)
+                if line is not None:
+                    print(line)
             elapsed = time.perf_counter() - t0
             n_ctg = stats.get("n_contigs", 0)
             print("Write output PAF file")
@@ -181,7 +209,8 @@ def run(argv=None, device="cuda") -> int:
         merge_alt_paf(dataset, args.alt, cfg.alt_baseline)
     print("File read complete")
 
-    prof = _profiler(args.profile, device) if args.profile else None
+    if args.profile and prof is None:
+        prof = _profiler(args.profile, device)
 
     if args.resume:
         from alignasm_tpu_torch.runtime.checkpoint import (
@@ -219,8 +248,7 @@ def run(argv=None, device="cuda") -> int:
             print(file=sys.stderr)
 
     if prof is not None:
-        prof.__exit__(None, None, None)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        _stop_profiler(prof, args.profile)
 
     print("Write output PAF file")
     out_p, alt_p, all_p = output_paths(args.paf_loc)

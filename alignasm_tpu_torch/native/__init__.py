@@ -152,6 +152,14 @@ def _ensure_lib():
             ctypes.c_int, ctypes.c_char_p, ctypes.c_int,
         ]
         lib.aln_append_shard.restype = ctypes.c_int
+        lib.aln_trace.argtypes = [ctypes.c_int]
+        lib.aln_trace.restype = None
+        lib.aln_trace_slots.argtypes = []
+        lib.aln_trace_slots.restype = ctypes.c_int
+        lib.aln_trace_name.argtypes = [ctypes.c_int]
+        lib.aln_trace_name.restype = ctypes.c_char_p
+        lib.aln_trace_read.argtypes = [llp, llp]
+        lib.aln_trace_read.restype = None
         _lib = lib
     return _lib
 
@@ -290,6 +298,27 @@ def drain_teardowns() -> None:
     loops call it BETWEEN reps so a previous rep's free() churn doesn't
     compete with the next rep's timed work."""
     _ensure_lib().aln_drain_teardowns()
+
+
+def trace(on: bool) -> None:
+    """Switch the host plane's counter table on or off (it starts off).
+    While it is off the C++ plane reads no clock for it."""
+    _ensure_lib().aln_trace(1 if on else 0)
+
+
+def trace_read() -> dict:
+    """The counter table since the last read, then reset: ``{slot:
+    (seconds, count)}`` for every slot of ``src/solver.h``'s
+    ``TraceSlot``, (0.0, 0) where a slot counted nothing.  Seconds are
+    summed over threads, except the wall-time slots ``scan``, ``flush``
+    and ``teardown``."""
+    lib = _ensure_lib()
+    k = lib.aln_trace_slots()
+    ns = (ctypes.c_longlong * k)()
+    n = (ctypes.c_longlong * k)()
+    lib.aln_trace_read(ns, n)
+    return {lib.aln_trace_name(i).decode(): (ns[i] / 1e9, n[i])
+            for i in range(k)}
 
 
 class GraphExporter:

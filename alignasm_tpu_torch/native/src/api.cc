@@ -80,7 +80,7 @@ int aln_run_stats2(const char *paf_path, const char *alt_path, double alt_baseli
             if (failed.load(std::memory_order_relaxed)) return;
             try {
                 aln::ContigResult res = aln::solve_contig(dset.contigs[i], cfg);
-                aln::SolveProfScope ps(7);
+                aln::TraceScope ps(aln::kFormat);
                 aln::format_rows_parallel(parts_out[i], dset, i, res.out,
                                           nthreads);
                 aln::format_rows_one(parts_alt[i], dset, i, res.alt);
@@ -165,12 +165,6 @@ int aln_run_stats2(const char *paf_path, const char *alt_path, double alt_baseli
             stats->write_s = secs(t2, t3);
             stats->contigs = (long long) n;
         }
-        if (aln::solve_prof_on()) {
-            for (int k = 0; k < 8; k++)
-                fprintf(stderr, "solve_prof %s %.1f ms\n",
-                        aln::solve_prof_names[k],
-                        aln::solve_prof_ns[k].exchange(0) / 1e6);
-        }
         return 0;
     } catch (const std::exception &e) {
         set_err(err, errlen, e.what());
@@ -234,15 +228,6 @@ int aln_run_shard(const char *paf_path, const char *alt_path,
                            + e.what();
             }
         };
-        auto prof_t0 = std::chrono::steady_clock::now();
-        auto prof = [&](const char *tag) {
-            if (!getenv("ALN_SHARD_PROF")) return;
-            auto now = std::chrono::steady_clock::now();
-            fprintf(stderr, "run_shard r%lld %s %.2f ms\n", rank, tag,
-                    std::chrono::duration<double, std::milli>(
-                        now - prof_t0).count());
-            prof_t0 = now;
-        };
         bool fused = !(alt_path && alt_path[0]);
         aln::GroupSink sink;
         sink.start = [&](aln::Dataset &, size_t n_groups) {
@@ -261,7 +246,6 @@ int aln_run_shard(const char *paf_path, const char *alt_path,
                                   &n_lines)
             : aln::read_paf(paf_path, nthreads, fused ? &sink : nullptr,
                             rank, world);
-        prof("parse_solve");
         size_t n = ds.contigs.size();
         // the cross-rank consistency token in the shard header: global
         // line count under the range parse (group counts are local
@@ -293,7 +277,6 @@ int aln_run_shard(const char *paf_path, const char *alt_path,
             }
         }
         if (failed) { set_err(err, errlen, fail_msg); return 2; }
-        prof("solve_tail");
 
         long long n_local = ds.shard_hi - ds.shard_lo;
         const std::vector<std::string> *streams[3] = {&parts_out, &parts_alt,
@@ -306,7 +289,6 @@ int aln_run_shard(const char *paf_path, const char *alt_path,
             aln::flush_three(std::string(direct_prefix), parts_out,
                              parts_alt, parts_max,
                              nthreads <= 1 ? 1 : 3);
-            prof("direct_flush");
         } else {
             // publish the shard file (write to .tmp, atomic rename)
             long long totals[3] = {0, 0, 0};
@@ -339,7 +321,6 @@ int aln_run_shard(const char *paf_path, const char *alt_path,
             if (std::rename(tmp.c_str(), shard_path) != 0)
                 throw std::runtime_error("cannot publish "
                                          + std::string(shard_path));
-            prof("publish");
         }
         // teardown off the timed path (same rationale as run_stats2):
         // rank 0 proceeds straight to appending landed shards

@@ -68,6 +68,7 @@ void ensure_results(ExportCtx &ctx) {
 }
 
 void format_result(ExportCtx &ctx, long long i) {
+    aln::TraceScope ts(aln::kFormat);
     const auto &r = ctx.results[i];
     ctx.pout[i].clear();
     ctx.palt[i].clear();
@@ -103,6 +104,7 @@ void run_pool(int threads, long long n, const std::function<void(long long)> &bo
         for (int t = 0; t < nt; t++) pool.emplace_back(worker);
         for (auto &t : pool) t.join();
     }
+    aln::trace_flush();  // this thread's share, when it ran the worker
 }
 
 void compute_ranks(PackedContig &pc) {
@@ -191,6 +193,7 @@ void *aln_open2(const char *paf_path, const char *alt_path, double alt_baseline,
                 (long long) contig.size() > max_records)
                 return;
             auto &pc = c->packed[i];
+            aln::TraceScope ts(aln::kBuild);
             try {
                 pc.graph = aln::build_graph(contig, c->cfg);
                 compute_ranks(pc);
@@ -655,6 +658,7 @@ static int finish_bulk_gate(void *h, const int64_t *idx, long long n_idx,
         if (row[V + 1] != (RowT) pos(src))
             throw std::runtime_error("device result row src mismatch");
         if (row[V]) {
+            aln::TraceScope ts(aln::kFast);
             static thread_local std::vector<int32_t> inv;
             inv.assign((size_t) V, -1);
             for (long long v = 0; v < nv; v++) inv[pos(v)] = (int32_t) v;
@@ -678,6 +682,7 @@ static int finish_bulk_gate(void *h, const int64_t *idx, long long n_idx,
                                                    (int) verts.size(), cfg);
             fast.fetch_add(1);
         } else {
+            aln::TraceScope ts(aln::kFallback);
             ctx.results[i] = aln::solve_from_graph(pc.graph, cfg);
             fb.fetch_add(1);
         }
@@ -725,10 +730,13 @@ int aln_solve_remaining(void *h, int lazy_walks, int threads,
     std::string werr;
     run_pool(threads, (long long) todo.size(), [&](long long k) {
         long long i = todo[k];
-        if (ctx.packed[i].built)
-            ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
-        else
-            ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+        {
+            aln::TraceScope ts(aln::kSolve);
+            if (ctx.packed[i].built)
+                ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
+            else
+                ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+        }
         format_result(ctx, i);
         ctx.done[i] = 1;
     }, werr);
@@ -758,10 +766,13 @@ int aln_solve_subset(void *h, const int64_t *idx, long long n_idx,
     std::string werr;
     run_pool(threads, n_idx, [&](long long k) {
         long long i = idx[k];
-        if (ctx.packed[i].built)
-            ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
-        else
-            ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+        {
+            aln::TraceScope ts(aln::kSolve);
+            if (ctx.packed[i].built)
+                ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
+            else
+                ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+        }
         if (format_out)
             format_result(ctx, i);
         else
@@ -773,6 +784,20 @@ int aln_solve_subset(void *h, const int64_t *idx, long long n_idx,
         return 1;
     }
     return 0;
+}
+
+// the counter table (solver.h): on != 0 switches it on, 0 off
+void aln_trace(int on) { aln::trace_flag.store(on != 0); }
+
+// the table's sums since the last read, slot by slot, into ns[] and n[]
+// (aln_trace_slots() entries each); resets it
+void aln_trace_read(long long *ns, long long *n) { aln::trace_take(ns, n); }
+
+int aln_trace_slots(void) { return aln::kTraceSlots; }
+
+const char *aln_trace_name(int slot) {
+    return slot >= 0 && slot < aln::kTraceSlots ? aln::trace_names[slot]
+                                                : nullptr;
 }
 
 int aln_prepare_results(void *h) {

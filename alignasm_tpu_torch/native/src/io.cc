@@ -134,18 +134,9 @@ void for_lines(std::string_view buf, F fn) {
 
 Dataset read_paf(const std::string &path, int threads, GroupSink *sink,
                  i64 rank, i64 world) {
-    auto prof_t0 = std::chrono::steady_clock::now();
-    auto prof = [&](const char *tag) {
-        if (!getenv("ALN_READ_PROF")) return;
-        auto now = std::chrono::steady_clock::now();
-        fprintf(stderr, "read_paf %s %.2f ms\n", tag,
-                std::chrono::duration<double, std::milli>(now - prof_t0).count());
-        prof_t0 = now;
-    };
     auto scan_t0 = std::chrono::steady_clock::now();
     Dataset ds;
     ds.buffer = slurp(path);
-    prof("slurp");
     int nt = std::max(1, threads);
 
     // pass 0 (parallel): chunk the buffer at line boundaries; per chunk
@@ -219,7 +210,6 @@ Dataset read_paf(const std::string &path, int threads, GroupSink *sink,
     size_t n_lines = 0;
     for (auto &sc : chunks) n_lines += sc.lines.size();
     if (n_lines == 0) throw std::runtime_error("empty PAF input");
-    prof("pass0_scan");
     std::vector<std::string_view> lines, qry_names;
     lines.reserve(n_lines);
     qry_names.reserve(n_lines);
@@ -248,8 +238,6 @@ Dataset read_paf(const std::string &path, int threads, GroupSink *sink,
             }
         }
     }
-
-    prof("pass1_intern_concat");
 
     // pass 2+3 fused: group boundaries come straight from the qry-name
     // views (serial view compares), per-contig vectors get their final
@@ -297,6 +285,7 @@ Dataset read_paf(const std::string &path, int threads, GroupSink *sink,
         if (sink->start) sink->start(ds, n_groups);
         sink->scan_s = std::chrono::duration<double>(
             std::chrono::steady_clock::now() - scan_t0).count();
+        if (trace_on()) trace_count(kScan, (long long) (sink->scan_s * 1e9));
     }
     // sharded parse: only groups owned by this rank get their records
     // parsed (cord_row stays the GLOBAL line index, so xi:Z provenance
@@ -310,7 +299,7 @@ Dataset read_paf(const std::string &path, int threads, GroupSink *sink,
                            RunArena &arena, ChrCache &cc) {
         auto &ctg = ds.contigs[g];
         size_t base = starts[g];
-        SolveProfScope ps(6);
+        TraceScope ps(kParse);
         for (size_t i = lo; i < hi; i++) {
             split_fields(lines[i], f);
             Record &r = ctg[i - base];
@@ -406,7 +395,6 @@ Dataset read_paf(const std::string &path, int threads, GroupSink *sink,
         for (auto &msg : fails)
             if (!msg.empty()) throw std::runtime_error(msg);
     }
-    prof("pass23_parse_group");
     return ds;
 }
 
@@ -1000,6 +988,7 @@ void flush_three(const std::string &prefix,
                  const std::vector<std::string> &out,
                  const std::vector<std::string> &alt,
                  const std::vector<std::string> &max, int threads) {
+    TraceScope ts(kFlush);
     static const char *sfx[] = {".aln.paf", ".aln.alt.paf", ".aln.all.paf"};
     const std::vector<std::string> *parts[] = {&out, &alt, &max};
     std::string fail[3];
@@ -1106,8 +1095,15 @@ std::vector<std::thread> &td_reg() {
 }  // namespace
 
 void async_teardown(std::function<void()> fn) {
+    // timed when the table is on at the call, so that a caller that
+    // switches it off right after still counts its teardown
+    bool timed = trace_on();
     std::lock_guard<std::mutex> lk(td_mu());
-    td_reg().emplace_back(std::move(fn));
+    td_reg().emplace_back([fn = std::move(fn), timed] {
+        long long t0 = timed ? trace_clock_ns() : 0;
+        fn();
+        if (timed) trace_count(kTeardown, trace_clock_ns() - t0);
+    });
 }
 
 }  // namespace aln

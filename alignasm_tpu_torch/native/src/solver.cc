@@ -133,22 +133,15 @@ constexpr i64 kParBuildMin = 64 << 10;
 
 }  // namespace
 
-// env-gated build sub-phase attribution (ALN_BUILD_PROF): prints the
-// sort / cut-vertex / edge split of one build — deterministic
-// wall-clock scopes, same rationale as ALN_SOLVE_PROF (this
-// hypervisor starves sampling profilers)
-static void build_prof(const char *what, std::chrono::steady_clock::time_point t0) {
-    static int on = -1;
-    if (on < 0) on = getenv("ALN_BUILD_PROF") != nullptr;
-    if (!on) return;
-    fprintf(stderr, "build_prof %s %.1f ms\n", what,
-            std::chrono::duration<double>(
-                std::chrono::steady_clock::now() - t0).count() * 1e3);
+// ALN_DEBUG_WALKS=1 prints each solve's walks to stderr; read once a
+// process
+static bool debug_walks() {
+    static const bool on = std::getenv("ALN_DEBUG_WALKS") != nullptr;
+    return on;
 }
 
 void build_graph_into(std::vector<Record> &records, const Config &cfg,
                       Graph &g) {
-    auto bt0 = std::chrono::steady_clock::now();
     g.n = (i64) records.size();
     g.recs.clear();
     g.part_idx.clear();
@@ -171,8 +164,6 @@ void build_graph_into(std::vector<Record> &records, const Config &cfg,
     });
     g.recs.assign(order.begin(), order.end());
     for (i64 i = 0; i < g.n; i++) order[i]->sorted_index = (i32) i;
-    build_prof("sort", bt0);
-    bt0 = std::chrono::steady_clock::now();
 
     // parts: maximal runs of query-overlapping records
     g.part_idx.resize(g.n);
@@ -194,8 +185,6 @@ void build_graph_into(std::vector<Record> &records, const Config &cfg,
         g.cut_st_q.push_back(g.recs[i]->qry_str);
         g.cut_st_r.push_back(g.recs[i]->ref_str);
     }
-    build_prof("record_vertices", bt0);
-    bt0 = std::chrono::steady_clock::now();
     int cut_helpers = g.n >= kParBuildMin ? acquire_solver_helpers(3) : 0;
     if (cut_helpers == 0) {
         for (i64 i = 0; i < g.n; i++) {
@@ -254,8 +243,6 @@ void build_graph_into(std::vector<Record> &records, const Config &cfg,
                 g.cut_st_q.push_back(h.c.st_q); g.cut_st_r.push_back(h.c.st_r);
             }
     }
-    build_prof("cut_vertices", bt0);
-    bt0 = std::chrono::steady_clock::now();
     g.src = (i32) g.vtx.size();
     g.dest = g.src + 1;
     // grow-only + per-slot clear: a reused scratch graph keeps every
@@ -438,7 +425,6 @@ void build_graph_into(std::vector<Record> &records, const Config &cfg,
         for (auto &t : pool) t.join();
         release_solver_helpers(edge_helpers);
     }
-    build_prof("edges", bt0);
 }
 
 namespace {
@@ -494,7 +480,6 @@ public:
     // unreachable (cannot happen for valid contigs)
     bool prepare() {
         const Graph &g = *gp_;
-        auto wpt = std::chrono::steady_clock::now();
         // reversed adjacency in CSR form (counting sort preserves the
         // u-major per-target order the nested-vector form had); the
         // nested form allocated V inner vectors per contig
@@ -580,8 +565,6 @@ public:
             });
             release_solver_helpers(csr_helpers);
         }
-        build_prof("wp_csr", wpt);
-        wpt = std::chrono::steady_clock::now();
         // Kahn order of the reversed graph (in-degree there = forward
         // out-degree); the output vector doubles as the FIFO queue
         {
@@ -600,8 +583,6 @@ public:
             if ((i64) rev_order_.size() != V_)
                 throw std::runtime_error("cycle in contig DAG");
         }
-        build_prof("wp_kahn", wpt);
-        wpt = std::chrono::steady_clock::now();
         d_.assign(V_, Dist{});
         reach_.assign(V_, false);
         best_.assign(V_, -1);
@@ -618,7 +599,6 @@ public:
                 }
             }
         }
-        build_prof("wp_dp", wpt);
         if (!reach_[g.src]) return false;
         dists_.push_back(d_[g.src]);
         last_.push_back(-1);
@@ -1289,7 +1269,6 @@ struct NotAlt {
 static std::vector<OutRow> to_rows(const Graph &g, const Upgrader &up,
                                    EdgePath &path, NotAlt &not_alt,
                                    const Config &cfg) {
-    auto trt = std::chrono::steady_clock::now();
     for (auto &[u, v, w] : path) {
         if (v != g.dest) {
             auto [x, y] = g.vtx[v];
@@ -1297,13 +1276,9 @@ static std::vector<OutRow> to_rows(const Graph &g, const Upgrader &up,
             not_alt.add(g.recs[y]->ctg_index);
         }
     }
-    build_prof("tr_not_alt", trt);
-    trt = std::chrono::steady_clock::now();
     if (cfg.upgrade_mode == 0)
         up.upgrade_inplace(path);
-    build_prof("tr_upgrade", trt);
-    trt = std::chrono::steady_clock::now();
-    if (std::getenv("ALN_DEBUG_WALKS")) {
+    if (debug_walks()) {
         fprintf(stderr, "upgraded:");
         for (auto &[u, v, w] : path) fprintf(stderr, " %d->%d", u, v);
         fprintf(stderr, "\n");
@@ -1339,13 +1314,10 @@ static std::vector<OutRow> to_rows(const Graph &g, const Upgrader &up,
             }
         }
     }
-    build_prof("tr_rows", trt);
-    trt = std::chrono::steady_clock::now();
     if (cfg.upgrade_mode == 1)
         rows = upgrade_single_piece(g, cfg, std::move(rows));
     for (auto &row : rows)
         row.alt_flag = !not_alt.has(row.ctg_index);
-    build_prof("tr_alt_flag", trt);
     return rows;
 }
 
@@ -1398,36 +1370,48 @@ static std::vector<i64> level_min_sums(const Graph &g, i64 cap,
                             f.begin() + (g.dest + 1) * W);
 }
 
-// env-gated solve sub-phase attribution (ALN_SOLVE_PROF): global
-// relaxed-atomic nanosecond counters, printed by aln_run_stats2.
-// Zero cost when disabled (one cached getenv per thread).
-std::atomic<long long> solve_prof_ns[8];
-const char *const solve_prof_names[8] = {
-    "build", "topo+floor", "walk_dp", "fast_rows", "lazy_enum", "select",
-    "parse_records", "format"};
-bool solve_prof_on() {
-    static thread_local int e = -1;
-    if (e < 0) e = getenv("ALN_SOLVE_PROF") != nullptr;
-    return e == 1;
-}
+const char *const trace_names[kTraceSlots] = {
+    "solve_build", "topo", "walk_dp", "fast_rows", "lazy_enum", "select",
+    "parse", "format", "scan", "build", "fast", "fallback", "flush", "solve",
+    "teardown"};
+std::atomic<bool> trace_flag{false};
 namespace {
-struct ProfScope {
-    int slot;
-    bool on;
-    std::chrono::steady_clock::time_point t0;
-    explicit ProfScope(int s)
-        : slot(s), on(solve_prof_on()),
-          t0(on ? std::chrono::steady_clock::now()
-                : std::chrono::steady_clock::time_point{}) {}
-    ~ProfScope() {
-        if (on)
-            solve_prof_ns[slot].fetch_add(
-                std::chrono::duration_cast<std::chrono::nanoseconds>(
-                    std::chrono::steady_clock::now() - t0).count(),
-                std::memory_order_relaxed);
+std::atomic<long long> trace_ns[kTraceSlots], trace_n[kTraceSlots];
+// one thread's sums; a worker thread's reach the table when it ends
+struct TraceLocal {
+    long long ns[kTraceSlots] = {}, n[kTraceSlots] = {};
+    bool any = false;
+    ~TraceLocal() { flush(); }
+    void flush() {
+        if (!any) return;
+        for (int k = 0; k < kTraceSlots; k++) {
+            if (!n[k]) continue;
+            trace_ns[k].fetch_add(ns[k], std::memory_order_relaxed);
+            trace_n[k].fetch_add(n[k], std::memory_order_relaxed);
+            ns[k] = n[k] = 0;
+        }
+        any = false;
     }
 };
+thread_local TraceLocal trace_local;
 }  // namespace
+void trace_add(int slot, long long ns) {
+    trace_local.ns[slot] += ns;
+    trace_local.n[slot]++;
+    trace_local.any = true;
+}
+void trace_count(int slot, long long ns) {
+    trace_ns[slot].fetch_add(ns, std::memory_order_relaxed);
+    trace_n[slot].fetch_add(1, std::memory_order_relaxed);
+}
+void trace_flush() { trace_local.flush(); }
+void trace_take(long long *ns, long long *n) {
+    trace_flush();
+    for (int k = 0; k < kTraceSlots; k++) {
+        ns[k] = trace_ns[k].exchange(0, std::memory_order_relaxed);
+        n[k] = trace_n[k].exchange(0, std::memory_order_relaxed);
+    }
+}
 
 ContigResult solve_contig(std::vector<Record> &records, const Config &cfg) {
     ContigResult res;
@@ -1442,7 +1426,7 @@ ContigResult solve_contig(std::vector<Record> &records, const Config &cfg) {
     // their capacity across this thread's contigs
     static thread_local Graph g;
     {
-        ProfScope ps(0);
+        TraceScope ps(kSolveBuild);
         build_graph_into(records, cfg, g);
     }
     return solve_from_graph(g, cfg);
@@ -1463,12 +1447,12 @@ ContigResult solve_from_graph(const Graph &g, const Config &cfg) {
     static thread_local Upgrader up_tl;
     i64 floor_a;
     {
-        ProfScope ps(1);
+        TraceScope ps(kTopo);
         topo_order_into(g.adj, g.nv(), fwd_order);
         floor_a = anom_floor(g, fwd_order);
     }
     {
-        ProfScope ps(2);
+        TraceScope ps(kWalkDp);
         walks.reset(g);
         if (!walks.prepare()) throw std::runtime_error("dest unreachable");
     }
@@ -1480,18 +1464,12 @@ ContigResult solve_from_graph(const Graph &g, const Config &cfg) {
     // tie sweep and alt scan are both no-ops, so skip Eppstein entirely
     if (cfg.lazy_walks && min_d.a == floor_a &&
         walks.count_min_walks(2) == 1) {
-        ProfScope ps(3);
-        auto fpt = std::chrono::steady_clock::now();
+        TraceScope ps(kFastRows);
         up_tl.reset(g, &fwd_order);
         static thread_local NotAlt not_alt0;
         not_alt0.begin_contig();
-        build_prof("fp_reset", fpt);
-        fpt = std::chrono::steady_clock::now();
         EdgePath &p0 = walks.recover(0);
-        build_prof("fp_recover", fpt);
-        fpt = std::chrono::steady_clock::now();
         res.out = to_rows(g, up_tl, p0, not_alt0, cfg);
-        build_prof("fp_to_rows", fpt);
         return res;
     }
 
@@ -1538,7 +1516,7 @@ ContigResult solve_from_graph(const Graph &g, const Config &cfg) {
     }
     // enumerate until the bound (exclusive of walks strictly beyond it)
     {
-        ProfScope ps(4);
+        TraceScope ps(kLazyEnum);
         while ((i64) walks.dists().size() < k_budget) {
             if (!walks.next()) break;
             const Dist &d = walks.dists().back();
@@ -1546,10 +1524,10 @@ ContigResult solve_from_graph(const Graph &g, const Config &cfg) {
                 || (d.sum() == stop_sum && d.a > stop_anom)) break;
         }
     }
-    ProfScope ps_sel(5);
+    TraceScope ps_sel(kSelect);
     const auto &kd = walks.dists();
 
-    if (std::getenv("ALN_DEBUG_WALKS")) {
+    if (debug_walks()) {
         for (i64 i = 0; i < (i64) kd.size(); i++) {
             const Dist &d = kd[i];
             fprintf(stderr, "walk %lld: %lld %lld %lld %lld %lld |", (long long) i,

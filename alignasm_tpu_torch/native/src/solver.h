@@ -136,28 +136,51 @@ void build_graph_into(std::vector<Record> &records, const Config &cfg,
 
 }  // namespace aln
 
-// env-gated solve sub-phase attribution (ALN_SOLVE_PROF=1): global
-// nanosecond counters accumulated by solve_contig/solve_from_graph,
-// printed + reset by aln_run_stats2
+// The host plane's counter table: per slot, the nanoseconds summed over
+// every timed scope and the number of scopes.  aln_trace switches it on
+// and off, aln_trace_read reads and resets it (export.cc).  While it is
+// off a scope reads no clock and adds nothing.  A scope adds to its
+// thread's own sums; trace_flush moves them into the shared table, which
+// each worker thread does once, when it ends, and run_pool and
+// aln_trace_read do for the calling thread.  The serial scan and a
+// teardown, once a call each, add to the table directly.
 namespace aln {
-extern std::atomic<long long> solve_prof_ns[8];
-extern const char *const solve_prof_names[8];
-bool solve_prof_on();
-// RAII accumulator for one slot (no-op when ALN_SOLVE_PROF unset)
-struct SolveProfScope {
+enum TraceSlot {
+    // sub-slots of a solve (solve_contig / solve_from_graph, wherever it
+    // runs): graph build, topo order and anomaly floor, walk DP, the
+    // unique-walk rows, lazy enumeration, selection
+    kSolveBuild, kTopo, kWalkDp, kFastRows, kLazyEnum, kSelect,
+    kParse,     // record and cs parse (parse workers)
+    kFormat,    // one contig's output rows formatted
+    kScan,      // read_paf's serial scan, wall time
+    kBuild,     // the exporter's graph build with ranks (parse workers)
+    kFast,      // a device-gated contig: path chase and rows
+    kFallback,  // a contig the device gated out, solved on the host
+    kFlush,     // flush_three, wall time
+    kSolve,     // the exporter's host solve of one contig
+    kTeardown,  // one background teardown, wall time, counted at its end
+    kTraceSlots
+};
+extern const char *const trace_names[kTraceSlots];
+extern std::atomic<bool> trace_flag;
+inline bool trace_on() { return trace_flag.load(std::memory_order_relaxed); }
+inline long long trace_clock_ns() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+        std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+void trace_add(int slot, long long ns);    // to this thread's sums
+void trace_count(int slot, long long ns);  // to the table
+void trace_flush();                        // this thread's sums to the table
+// flushes this thread, then reads the table into ns[], n[] and resets it
+void trace_take(long long *ns, long long *n);
+// one timed scope of ``slot``, added to this thread's sums
+struct TraceScope {
     int slot;
-    bool on;
-    std::chrono::steady_clock::time_point t0;
-    explicit SolveProfScope(int s)
-        : slot(s), on(solve_prof_on()),
-          t0(on ? std::chrono::steady_clock::now()
-                : std::chrono::steady_clock::time_point{}) {}
-    ~SolveProfScope() {
-        if (on)
-            solve_prof_ns[slot].fetch_add(
-                std::chrono::duration_cast<std::chrono::nanoseconds>(
-                    std::chrono::steady_clock::now() - t0).count(),
-                std::memory_order_relaxed);
+    long long t0;
+    explicit TraceScope(int s)
+        : slot(trace_on() ? s : -1), t0(slot < 0 ? 0 : trace_clock_ns()) {}
+    ~TraceScope() {
+        if (slot >= 0) trace_add(slot, trace_clock_ns() - t0);
     }
 };
 }  // namespace aln

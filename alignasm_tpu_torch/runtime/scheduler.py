@@ -65,6 +65,8 @@ from alignasm_tpu_torch.ops.dense import (
 )
 from alignasm_tpu_torch.ops.wire import ragged_to_device, wire16_to_device
 from alignasm_tpu_torch.parallel.mesh import as_mesh, gather, launch_sharded
+from alignasm_tpu_torch.runtime import tracing
+from alignasm_tpu_torch.runtime.tracing import span
 
 MAX_V = 256  # the scan and uint8 gate rows; above it the blocked solve
 # A V = 16384 bucket holds one contig (_dense_buckets), a 1.07 GB slab.
@@ -370,68 +372,65 @@ def _device_assist(exporter, cfg: AlignasmConfig, meta, idx_pool, stats,
     has been joined.
 
     Returns the contig indices whose results the finish stored."""
-    pool_mask = np.zeros(len(meta), bool)
-    pool_mask[idx_pool] = True
-    idx_all = np.where(_eligible_mask(meta, cfg) & pool_mask)[0]
-    n_v, n_edges = meta[:, 2], meta[:, 3]
-    order = idx_all[np.argsort(n_v[idx_all], kind="stable")]
-    buckets = _dense_buckets(order, n_v)
-    if model is not None:
-        buckets = _gate_buckets(buckets, meta, model, stats)
+    with span(stats, "bucket_s", tracing.BUCKET):
+        pool_mask = np.zeros(len(meta), bool)
+        pool_mask[idx_pool] = True
+        idx_all = np.where(_eligible_mask(meta, cfg) & pool_mask)[0]
+        n_v, n_edges = meta[:, 2], meta[:, 3]
+        order = idx_all[np.argsort(n_v[idx_all], kind="stable")]
+        buckets = _dense_buckets(order, n_v)
+        if model is not None:
+            buckets = _gate_buckets(buckets, meta, model, stats)
     if len(mesh) > 1:
         stats["data_mesh_devices"] = len(mesh)
 
-    t0 = time.perf_counter()
     launches = []
-    _launch_buckets(buckets, n_edges, exporter, mesh, launches, stats)
-    stats["launch_s"] = round(time.perf_counter() - t0, 4)
+    with span(stats, "launch_s", tracing.LAUNCH):
+        _launch_buckets(buckets, n_edges, exporter, mesh, launches, stats)
 
-    overlap_thread = None
-    if overlap is not None:
-        overlap_thread = threading.Thread(target=overlap, daemon=True)
-        overlap_thread.start()
+    with span(stats, "overlap_start_s", tracing.START):
+        overlap_thread = None
+        if overlap is not None:
+            overlap_thread = threading.Thread(target=overlap, daemon=True)
+            overlap_thread.start()
 
-    t0 = time.perf_counter()
-    sync_s = cfinish_s = 0.0
+    # stats: finish_s wait + finish, sync_s device wait + transfer,
+    # cfinish_s the threaded C++ finish
+    stats["sync_s"] = stats["cfinish_s"] = 0.0
     covered = []
-    try:
-        for idxs, realB, V, parts, ok in launches:
-            t1 = time.perf_counter()
-            dp = gather(parts)[:realB]
-            stats["d2h_bytes"] = stats.get("d2h_bytes", 0) + dp.nbytes
-            if ok is not None:
-                dp = dp[ok]
-                idxs = idxs[ok]
+    with span(stats, "finish_s"):
+        try:
+            for idxs, realB, V, parts, ok in launches:
+                with span(stats, "sync_s", tracing.SYNC) as sync:
+                    dp = gather(parts)[:realB]
+                    stats["d2h_bytes"] = stats.get("d2h_bytes", 0) + dp.nbytes
+                    if ok is not None:
+                        dp = dp[ok]
+                        idxs = idxs[ok]
                 if not len(idxs):
                     continue
-            t2 = time.perf_counter()
-            sync_s += t2 - t1
-            try:
-                finish = exporter.finish_bulk8 if dp.dtype == np.uint8 \
-                    else exporter.finish_bulk16  # int16 gate rows
-                n_fast, n_fb = finish(idxs, dp, V)
-            except Exception as exc:  # host plane: degrade to native solve
-                stats["device_error"] = f"finish: {exc!r}"[:500]
-                cfinish_s += time.perf_counter() - t2
-                continue
-            cfinish_s += time.perf_counter() - t2
-            stats.setdefault("bucket_phases", []).append(
-                (int(V), int(len(idxs)), round(t2 - t1, 4),
-                 round(time.perf_counter() - t2, 4)))
-            covered.append(idxs)
-            stats["device"] += n_fast
-            stats["fallback"] += n_fb
-    finally:  # the exporter must outlive the overlap thread's solve
-        if overlap_thread is not None:
-            t1 = time.perf_counter()
-            overlap_thread.join()
-            stats["overlap_join_s"] = round(time.perf_counter() - t1, 4)
+                with span(stats, "cfinish_s", tracing.FINISH) as fin:
+                    try:
+                        finish = exporter.finish_bulk8 \
+                            if dp.dtype == np.uint8 \
+                            else exporter.finish_bulk16  # int16 gate rows
+                        n_fast, n_fb = finish(idxs, dp, V)
+                    except Exception as exc:  # host plane: degrade
+                        stats["device_error"] = f"finish: {exc!r}"[:500]
+                        continue
+                stats.setdefault("bucket_phases", []).append(
+                    (int(V), int(len(idxs)), round(sync.seconds, 4),
+                     round(fin.seconds, 4)))
+                covered.append(idxs)
+                stats["device"] += n_fast
+                stats["fallback"] += n_fb
+        finally:  # the exporter must outlive the overlap thread's solve
+            with span(stats, "overlap_join_s", tracing.WAIT):
+                if overlap_thread is not None:
+                    overlap_thread.join()
     if "device_error" in stats:
         warnings.warn("device path degraded to native solve: "
                       + stats["device_error"], RuntimeWarning, stacklevel=2)
-    stats["finish_s"] = round(time.perf_counter() - t0, 4)  # wait + finish
-    stats["sync_s"] = round(sync_s, 4)        # device wait + transfer
-    stats["cfinish_s"] = round(cfinish_s, 4)  # threaded C++ finish
     return np.concatenate(covered) if covered else np.empty(0, np.int64)
 
 
@@ -507,20 +506,22 @@ def _route_pool(exporter, cfg: AlignasmConfig, meta, pool, stats, mesh,
     Returns ``(covered, non_device)``: the indices whose results the
     device finish stored, and the ones handed to the native solve.  The
     caller solves what neither left a result for."""
-    eligible = _eligible_mask(meta, cfg) if route.allow_device \
-        else np.zeros(len(meta), bool)
-    non_device = pool[~eligible[pool]]
-    exporter.prepare_results()  # pre-size result slots: the overlap
-    # thread and the finish calls must not race a lazy resize
+    with span(stats, "bucket_s", tracing.BUCKET):
+        eligible = _eligible_mask(meta, cfg) if route.allow_device \
+            else np.zeros(len(meta), bool)
+        non_device = pool[~eligible[pool]]
+        exporter.prepare_results()  # pre-size result slots: the overlap
+        # thread and the finish calls must not race a lazy resize
 
     def solve_non_device():
-        t1 = time.perf_counter()
-        try:
-            exporter.solve_subset(non_device, threads=threads,
-                                  format_out=format_out)
-        except Exception as exc:  # the caller solves the set again
-            stats["overlap_error"] = repr(exc)[:500]
-        stats["overlap_solve_s"] = round(time.perf_counter() - t1, 4)
+        # no label: a span on this thread would claim the main thread's
+        # idle time in the trace
+        with span(stats, "overlap_solve_s"):
+            try:
+                exporter.solve_subset(non_device, threads=threads,
+                                      format_out=format_out)
+            except Exception as exc:  # the caller solves the set again
+                stats["overlap_error"] = repr(exc)[:500]
 
     overlap = solve_non_device if len(non_device) else None
     if not route.allow_device:
@@ -575,50 +576,53 @@ def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
     ``dataset`` must hold the file's contigs (AssertionError otherwise, as
     in the JAX scheduler).  On a mesh of several devices the graph axis
     (``_graph_axis``) runs first."""
-    t_start = time.perf_counter()
-    native.tune_heap()
     stats = _native_stats(cfg, route, mesh)
-    exporter = _open_exporter(cfg, src_paths)
-    stats["pack_open_s"] = round(time.perf_counter() - t_start, 4)
-    try:
-        n = len(exporter)
-        if dataset is not None and n != len(dataset.contigs):
-            raise AssertionError("native/python contig count mismatch")
-        meta = exporter.meta_bulk()
-        n_rec = meta[:, 1]
-        stats["singleton"] = int((n_rec == 1).sum())
-        stats["oversize"] = int((n_rec > cfg.max_device_records).sum())
-        stats["n_contigs"] = n
-        stats["n_records"] = int(n_rec.sum())
-        stats["pack_s"] = round(time.perf_counter() - t_start, 4)
+    exporter = None
+    with span(stats, "total_s"):
+        try:
+            with span(stats, "pack_s", tracing.PACK):
+                with span(stats, "pack_open_s"):
+                    native.tune_heap()
+                    exporter = _open_exporter(cfg, src_paths)
+                n = len(exporter)
+                if dataset is not None and n != len(dataset.contigs):
+                    raise AssertionError("native/python contig count mismatch")
+                meta = exporter.meta_bulk()
+                n_rec = meta[:, 1]
+                stats["singleton"] = int((n_rec == 1).sum())
+                stats["oversize"] = int((n_rec > cfg.max_device_records).sum())
+                stats["n_contigs"] = n
+                stats["n_records"] = int(n_rec.sum())
 
-        pool = np.arange(n)
-        if route.allow_device and len(mesh) > 1:
-            pool = np.setdiff1d(pool, _graph_axis(exporter, cfg, n_rec,
-                                                  stats, mesh))
-        _covered, non_device = _route_pool(
-            exporter, cfg, meta, pool, stats, mesh, route,
-            format_out=write_prefix is not None)
-        if not route.allow_device:
-            stats["routed"] = "native-plane"
-        # leftovers: export-rejected / gated / device-error contigs (and
-        # the non-device set if its native solve failed)
-        stats["native_direct"] = exporter.solve_remaining() \
-            + len(non_device) - stats["singleton"]
-        stats["device_routed_frac"] = round(stats["device"] / n, 4) \
-            if n else 0.0
+            pool = np.arange(n)
+            if route.allow_device and len(mesh) > 1:
+                pool = np.setdiff1d(pool, _graph_axis(exporter, cfg, n_rec,
+                                                      stats, mesh))
+            _covered, non_device = _route_pool(
+                exporter, cfg, meta, pool, stats, mesh, route,
+                format_out=write_prefix is not None)
+            if not route.allow_device:
+                stats["routed"] = "native-plane"
+            # leftovers: export-rejected / gated / device-error contigs
+            # (and the non-device set if its native solve failed)
+            with span(stats, "remaining_s", tracing.NATIVE_SOLVE):
+                n_left = exporter.solve_remaining()
+            stats["native_direct"] = n_left + len(non_device) \
+                - stats["singleton"]
+            stats["device_routed_frac"] = round(stats["device"] / n, 4) \
+                if n else 0.0
 
-        if write_prefix is not None:
-            t0 = time.perf_counter()
-            exporter.write_results(write_prefix)
-            stats["written_natively"] = True
-            stats["write_s"] = round(time.perf_counter() - t0, 4)
-            result = (None, None, None)
-        else:
-            result = exporter.fetch_results()
-    finally:
-        exporter.close()
-    stats["total_s"] = round(time.perf_counter() - t_start, 4)
+            if write_prefix is not None:
+                with span(stats, "write_s", tracing.WRITE):
+                    exporter.write_results(write_prefix)
+                stats["written_natively"] = True
+                result = (None, None, None)
+            else:
+                result = exporter.fetch_results()
+        finally:
+            if exporter is not None:
+                with span(stats, "close_s", tracing.CLOSE):
+                    exporter.close()
     return result
 
 
@@ -879,16 +883,28 @@ def solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths=None,
     and a parsed ``dataset`` was given) the Python plane solves
     ``dataset`` in buckets of ``batch_size`` contigs and returns the
     per-contig results; ``write_prefix`` is then not used, as in the JAX
-    package.  Stats land in ``solve_dataset_torch.last_stats``."""
+    package.  Stats land in ``solve_dataset_torch.last_stats``.  While a
+    ``torch.profiler`` records, the call and its stages are spans
+    (``runtime/tracing.py``) and the native route's stats carry the C++
+    host plane's counters (``native_<slot>_s``, ``native_<slot>_n``)."""
+    with span(None, None, tracing.SOLVE):
+        return _solve_dataset_torch(dataset, cfg, src_paths, write_prefix,
+                                    device, batch_size)
+
+
+def _solve_dataset_torch(dataset, cfg: AlignasmConfig, src_paths,
+                         write_prefix, device, batch_size: int):
     mesh = as_mesh(device)
     if src_paths is not None:
         route = _routing(cfg)
         try:
-            if not route.allow_device and write_prefix is not None:
-                return _solve_native_routed(cfg, src_paths, write_prefix,
-                                            route.cost_model)
-            return _solve_torch_native(dataset, cfg, src_paths, write_prefix,
-                                       mesh, route)
+            with tracing.native_counters(
+                    lambda c: solve_dataset_torch.last_stats.update(c)):
+                if not route.allow_device and write_prefix is not None:
+                    return _solve_native_routed(cfg, src_paths, write_prefix,
+                                                route.cost_model)
+                return _solve_torch_native(dataset, cfg, src_paths,
+                                           write_prefix, mesh, route)
         except native.NativeError as exc:
             if dataset is None:
                 raise  # no parsed dataset to degrade to

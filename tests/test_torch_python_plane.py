@@ -372,14 +372,545 @@ def test_native_copy_matches_jax_native_and_goldens(tmp_path, name):
     assert native.library_path().parent.name == "build"
 
 
+# The port's edits to the copied C++ sources, (old, new) in order, each old
+# found once in the text it is applied to: the host plane's counter table
+# (solver.h's TraceSlot, switched and read through aln_trace /
+# aln_trace_read) grown from the solve_prof table in place of the four
+# environment-switched stderr printers (ALN_SOLVE_PROF, ALN_BUILD_PROF,
+# ALN_READ_PROF, ALN_SHARD_PROF) and the clock reads they took whether
+# on or off; ALN_DEBUG_WALKS read once a process.
+NATIVE_SOURCE_EDITS = {
+    "api.cc": (
+        ('                aln::SolveProfScope ps(7);\n',
+         '                aln::TraceScope ps(aln::kFormat);\n'),
+        (r"""        if (aln::solve_prof_on()) {
+            for (int k = 0; k < 8; k++)
+                fprintf(stderr, "solve_prof %s %.1f ms\n",
+                        aln::solve_prof_names[k],
+                        aln::solve_prof_ns[k].exchange(0) / 1e6);
+        }
+""",
+         ""),
+        (r"""        auto prof_t0 = std::chrono::steady_clock::now();
+        auto prof = [&](const char *tag) {
+            if (!getenv("ALN_SHARD_PROF")) return;
+            auto now = std::chrono::steady_clock::now();
+            fprintf(stderr, "run_shard r%lld %s %.2f ms\n", rank, tag,
+                    std::chrono::duration<double, std::milli>(
+                        now - prof_t0).count());
+            prof_t0 = now;
+        };
+""",
+         ""),
+        ('        prof("parse_solve");\n',
+         ""),
+        ('        prof("solve_tail");\n',
+         ""),
+        ('            prof("direct_flush");\n',
+         ""),
+        ('            prof("publish");\n',
+         ""),
+    ),
+    "export.cc": (
+        ("""    const auto &r = ctx.results[i];
+    ctx.pout[i].clear();
+""",
+         """    aln::TraceScope ts(aln::kFormat);
+    const auto &r = ctx.results[i];
+    ctx.pout[i].clear();
+"""),
+        ("""}
+
+void compute_ranks(PackedContig &pc) {
+""",
+         """    aln::trace_flush();  // this thread's share, when it ran the worker
+}
+
+void compute_ranks(PackedContig &pc) {
+"""),
+        ("""            try {
+                pc.graph = aln::build_graph(contig, c->cfg);
+""",
+         """            aln::TraceScope ts(aln::kBuild);
+            try {
+                pc.graph = aln::build_graph(contig, c->cfg);
+"""),
+        ("""            static thread_local std::vector<int32_t> inv;
+            inv.assign((size_t) V, -1);
+            for (long long v = 0; v < nv; v++) inv[pos(v)] = (int32_t) v;
+            static thread_local std::vector<aln::i32> verts;
+            verts.clear();
+            const long long dpos = pos(pc.graph.dest);
+            long long cur = pos(src);
+            for (long long k = 0; k < V; k++) {
+                if (cur < 0 || cur >= V || inv[cur] < 0)
+                    throw std::runtime_error("device nxt entry out of range");
+                verts.push_back(inv[cur]);
+                if (cur == dpos) break;
+                long long nx = row[cur];
+                if (nx <= cur)  // achieving successors strictly increase
+                    throw std::runtime_error("device nxt chain not increasing");
+                cur = nx;
+            }
+            if (verts.front() != src || verts.back() != pc.graph.dest)
+                throw std::runtime_error("device path endpoints mismatch");
+            ctx.results[i] = aln::finish_from_path(pc.graph, verts.data(),
+                                                   (int) verts.size(), cfg);
+            fast.fetch_add(1);
+        } else {
+            ctx.results[i] = aln::solve_from_graph(pc.graph, cfg);
+            fb.fetch_add(1);
+        }
+        format_result(ctx, i);
+        ctx.done[i] = 1;
+    }, werr);
+    *n_fast = fast.load();
+    *n_fallback = fb.load();
+    if (!werr.empty()) {
+        set_err(err, errlen, werr);
+        return 1;
+    }
+    return 0;
+}
+
+extern "C" {
+""",
+         """            aln::TraceScope ts(aln::kFast);
+            static thread_local std::vector<int32_t> inv;
+            inv.assign((size_t) V, -1);
+            for (long long v = 0; v < nv; v++) inv[pos(v)] = (int32_t) v;
+            static thread_local std::vector<aln::i32> verts;
+            verts.clear();
+            const long long dpos = pos(pc.graph.dest);
+            long long cur = pos(src);
+            for (long long k = 0; k < V; k++) {
+                if (cur < 0 || cur >= V || inv[cur] < 0)
+                    throw std::runtime_error("device nxt entry out of range");
+                verts.push_back(inv[cur]);
+                if (cur == dpos) break;
+                long long nx = row[cur];
+                if (nx <= cur)  // achieving successors strictly increase
+                    throw std::runtime_error("device nxt chain not increasing");
+                cur = nx;
+            }
+            if (verts.front() != src || verts.back() != pc.graph.dest)
+                throw std::runtime_error("device path endpoints mismatch");
+            ctx.results[i] = aln::finish_from_path(pc.graph, verts.data(),
+                                                   (int) verts.size(), cfg);
+            fast.fetch_add(1);
+        } else {
+            ctx.results[i] = aln::solve_from_graph(pc.graph, cfg);
+            fb.fetch_add(1);
+        }
+        format_result(ctx, i);
+        ctx.done[i] = 1;
+    }, werr);
+    *n_fast = fast.load();
+    *n_fallback = fb.load();
+    if (!werr.empty()) {
+        set_err(err, errlen, werr);
+        return 1;
+    }
+    return 0;
+}
+
+extern "C" {
+"""),
+        ("""            ctx.results[i] = aln::solve_from_graph(pc.graph, cfg);
+            fb.fetch_add(1);
+        }
+        format_result(ctx, i);
+        ctx.done[i] = 1;
+    }, werr);
+    *n_fast = fast.load();
+    *n_fallback = fb.load();
+    if (!werr.empty()) {
+        set_err(err, errlen, werr);
+        return 1;
+    }
+    return 0;
+}
+
+extern "C" {
+""",
+         """            aln::TraceScope ts(aln::kFallback);
+            ctx.results[i] = aln::solve_from_graph(pc.graph, cfg);
+            fb.fetch_add(1);
+        }
+        format_result(ctx, i);
+        ctx.done[i] = 1;
+    }, werr);
+    *n_fast = fast.load();
+    *n_fallback = fb.load();
+    if (!werr.empty()) {
+        set_err(err, errlen, werr);
+        return 1;
+    }
+    return 0;
+}
+
+extern "C" {
+"""),
+        ("""        if (ctx.packed[i].built)
+            ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
+        else
+            ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+        format_result(ctx, i);
+""",
+         """        {
+            aln::TraceScope ts(aln::kSolve);
+            if (ctx.packed[i].built)
+                ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
+            else
+                ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+        }
+        format_result(ctx, i);
+"""),
+        ("""        if (ctx.packed[i].built)
+            ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
+        else
+            ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+""",
+         """        {
+            aln::TraceScope ts(aln::kSolve);
+            if (ctx.packed[i].built)
+                ctx.results[i] = aln::solve_from_graph(ctx.packed[i].graph, cfg);
+            else
+                ctx.results[i] = aln::solve_contig(ctx.ds.contigs[i], cfg);
+        }
+"""),
+        ("""}
+
+int aln_prepare_results(void *h) {
+""",
+         """}
+
+// the counter table (solver.h): on != 0 switches it on, 0 off
+void aln_trace(int on) { aln::trace_flag.store(on != 0); }
+
+// the table's sums since the last read, slot by slot, into ns[] and n[]
+// (aln_trace_slots() entries each); resets it
+void aln_trace_read(long long *ns, long long *n) { aln::trace_take(ns, n); }
+
+int aln_trace_slots(void) { return aln::kTraceSlots; }
+
+const char *aln_trace_name(int slot) {
+    return slot >= 0 && slot < aln::kTraceSlots ? aln::trace_names[slot]
+                                                : nullptr;
+}
+
+int aln_prepare_results(void *h) {
+"""),
+    ),
+    "io.cc": (
+        (r"""    auto prof_t0 = std::chrono::steady_clock::now();
+    auto prof = [&](const char *tag) {
+        if (!getenv("ALN_READ_PROF")) return;
+        auto now = std::chrono::steady_clock::now();
+        fprintf(stderr, "read_paf %s %.2f ms\n", tag,
+                std::chrono::duration<double, std::milli>(now - prof_t0).count());
+        prof_t0 = now;
+    };
+""",
+         ""),
+        ('    prof("slurp");\n',
+         ""),
+        ('    prof("pass0_scan");\n',
+         ""),
+        ("""
+    prof("pass1_intern_concat");
+""",
+         ""),
+        ("""    }
+    // sharded parse: only groups owned by this rank get their records
+""",
+         """        if (trace_on()) trace_count(kScan, (long long) (sink->scan_s * 1e9));
+    }
+    // sharded parse: only groups owned by this rank get their records
+"""),
+        ('        SolveProfScope ps(6);\n',
+         '        TraceScope ps(kParse);\n'),
+        ('    prof("pass23_parse_group");\n',
+         ""),
+        ('    static const char *sfx[] = {".aln.paf", ".aln.alt.paf", ".aln.all.paf"};\n',
+         """    TraceScope ts(kFlush);
+    static const char *sfx[] = {".aln.paf", ".aln.alt.paf", ".aln.all.paf"};
+"""),
+        ('    std::lock_guard<std::mutex> lk(td_mu());\n',
+         """    // timed when the table is on at the call, so that a caller that
+    // switches it off right after still counts its teardown
+    bool timed = trace_on();
+    std::lock_guard<std::mutex> lk(td_mu());
+"""),
+        ('    td_reg().emplace_back(std::move(fn));\n',
+         """    td_reg().emplace_back([fn = std::move(fn), timed] {
+        long long t0 = timed ? trace_clock_ns() : 0;
+        fn();
+        if (timed) trace_count(kTeardown, trace_clock_ns() - t0);
+    });
+"""),
+    ),
+    "solver.cc": (
+        (r"""// env-gated build sub-phase attribution (ALN_BUILD_PROF): prints the
+// sort / cut-vertex / edge split of one build — deterministic
+// wall-clock scopes, same rationale as ALN_SOLVE_PROF (this
+// hypervisor starves sampling profilers)
+static void build_prof(const char *what, std::chrono::steady_clock::time_point t0) {
+    static int on = -1;
+    if (on < 0) on = getenv("ALN_BUILD_PROF") != nullptr;
+    if (!on) return;
+    fprintf(stderr, "build_prof %s %.1f ms\n", what,
+            std::chrono::duration<double>(
+                std::chrono::steady_clock::now() - t0).count() * 1e3);
+""",
+         """// ALN_DEBUG_WALKS=1 prints each solve's walks to stderr; read once a
+// process
+static bool debug_walks() {
+    static const bool on = std::getenv("ALN_DEBUG_WALKS") != nullptr;
+    return on;
+"""),
+        ('    auto bt0 = std::chrono::steady_clock::now();\n',
+         ""),
+        ("""    build_prof("sort", bt0);
+    bt0 = std::chrono::steady_clock::now();
+""",
+         ""),
+        ("""    build_prof("record_vertices", bt0);
+    bt0 = std::chrono::steady_clock::now();
+""",
+         ""),
+        ("""    build_prof("cut_vertices", bt0);
+    bt0 = std::chrono::steady_clock::now();
+""",
+         ""),
+        ('    build_prof("edges", bt0);\n',
+         ""),
+        ('        auto wpt = std::chrono::steady_clock::now();\n',
+         ""),
+        ("""        build_prof("wp_csr", wpt);
+        wpt = std::chrono::steady_clock::now();
+""",
+         ""),
+        ("""        build_prof("wp_kahn", wpt);
+        wpt = std::chrono::steady_clock::now();
+""",
+         ""),
+        ('        build_prof("wp_dp", wpt);\n',
+         ""),
+        ('    auto trt = std::chrono::steady_clock::now();\n',
+         ""),
+        ("""    build_prof("tr_not_alt", trt);
+    trt = std::chrono::steady_clock::now();
+""",
+         ""),
+        ("""    build_prof("tr_upgrade", trt);
+    trt = std::chrono::steady_clock::now();
+    if (std::getenv("ALN_DEBUG_WALKS")) {
+""",
+         '    if (debug_walks()) {\n'),
+        ("""    build_prof("tr_rows", trt);
+    trt = std::chrono::steady_clock::now();
+""",
+         ""),
+        ('    build_prof("tr_alt_flag", trt);\n',
+         ""),
+        ("""// env-gated solve sub-phase attribution (ALN_SOLVE_PROF): global
+// relaxed-atomic nanosecond counters, printed by aln_run_stats2.
+// Zero cost when disabled (one cached getenv per thread).
+std::atomic<long long> solve_prof_ns[8];
+const char *const solve_prof_names[8] = {
+    "build", "topo+floor", "walk_dp", "fast_rows", "lazy_enum", "select",
+    "parse_records", "format"};
+bool solve_prof_on() {
+    static thread_local int e = -1;
+    if (e < 0) e = getenv("ALN_SOLVE_PROF") != nullptr;
+    return e == 1;
+}
+""",
+         """const char *const trace_names[kTraceSlots] = {
+    "solve_build", "topo", "walk_dp", "fast_rows", "lazy_enum", "select",
+    "parse", "format", "scan", "build", "fast", "fallback", "flush", "solve",
+    "teardown"};
+std::atomic<bool> trace_flag{false};
+"""),
+        ("""struct ProfScope {
+    int slot;
+    bool on;
+    std::chrono::steady_clock::time_point t0;
+    explicit ProfScope(int s)
+        : slot(s), on(solve_prof_on()),
+          t0(on ? std::chrono::steady_clock::now()
+                : std::chrono::steady_clock::time_point{}) {}
+    ~ProfScope() {
+        if (on)
+            solve_prof_ns[slot].fetch_add(
+                std::chrono::duration_cast<std::chrono::nanoseconds>(
+                    std::chrono::steady_clock::now() - t0).count(),
+                std::memory_order_relaxed);
+""",
+         """std::atomic<long long> trace_ns[kTraceSlots], trace_n[kTraceSlots];
+// one thread's sums; a worker thread's reach the table when it ends
+struct TraceLocal {
+    long long ns[kTraceSlots] = {}, n[kTraceSlots] = {};
+    bool any = false;
+    ~TraceLocal() { flush(); }
+    void flush() {
+        if (!any) return;
+        for (int k = 0; k < kTraceSlots; k++) {
+            if (!n[k]) continue;
+            trace_ns[k].fetch_add(ns[k], std::memory_order_relaxed);
+            trace_n[k].fetch_add(n[k], std::memory_order_relaxed);
+            ns[k] = n[k] = 0;
+        }
+        any = false;
+"""),
+        ("""}  // namespace
+
+ContigResult solve_contig(std::vector<Record> &records, const Config &cfg) {
+""",
+         """thread_local TraceLocal trace_local;
+}  // namespace
+
+ContigResult solve_contig(std::vector<Record> &records, const Config &cfg) {
+"""),
+        ("""
+ContigResult solve_contig(std::vector<Record> &records, const Config &cfg) {
+""",
+         """void trace_add(int slot, long long ns) {
+    trace_local.ns[slot] += ns;
+    trace_local.n[slot]++;
+    trace_local.any = true;
+}
+void trace_count(int slot, long long ns) {
+    trace_ns[slot].fetch_add(ns, std::memory_order_relaxed);
+    trace_n[slot].fetch_add(1, std::memory_order_relaxed);
+}
+void trace_flush() { trace_local.flush(); }
+void trace_take(long long *ns, long long *n) {
+    trace_flush();
+    for (int k = 0; k < kTraceSlots; k++) {
+        ns[k] = trace_ns[k].exchange(0, std::memory_order_relaxed);
+        n[k] = trace_n[k].exchange(0, std::memory_order_relaxed);
+    }
+}
+
+ContigResult solve_contig(std::vector<Record> &records, const Config &cfg) {
+"""),
+        ('        ProfScope ps(0);\n',
+         '        TraceScope ps(kSolveBuild);\n'),
+        ('        ProfScope ps(1);\n',
+         '        TraceScope ps(kTopo);\n'),
+        ('        ProfScope ps(2);\n',
+         '        TraceScope ps(kWalkDp);\n'),
+        ("""        ProfScope ps(3);
+        auto fpt = std::chrono::steady_clock::now();
+""",
+         '        TraceScope ps(kFastRows);\n'),
+        ("""        build_prof("fp_reset", fpt);
+        fpt = std::chrono::steady_clock::now();
+""",
+         ""),
+        ("""        build_prof("fp_recover", fpt);
+        fpt = std::chrono::steady_clock::now();
+""",
+         ""),
+        ('        build_prof("fp_to_rows", fpt);\n',
+         ""),
+        ('        ProfScope ps(4);\n',
+         '        TraceScope ps(kLazyEnum);\n'),
+        ('    ProfScope ps_sel(5);\n',
+         '    TraceScope ps_sel(kSelect);\n'),
+        ('    if (std::getenv("ALN_DEBUG_WALKS")) {\n',
+         '    if (debug_walks()) {\n'),
+    ),
+    "solver.h": (
+        ("""// env-gated solve sub-phase attribution (ALN_SOLVE_PROF=1): global
+// nanosecond counters accumulated by solve_contig/solve_from_graph,
+// printed + reset by aln_run_stats2
+""",
+         """// The host plane's counter table: per slot, the nanoseconds summed over
+// every timed scope and the number of scopes.  aln_trace switches it on
+// and off, aln_trace_read reads and resets it (export.cc).  While it is
+// off a scope reads no clock and adds nothing.  A scope adds to its
+// thread's own sums; trace_flush moves them into the shared table, which
+// each worker thread does once, when it ends, and run_pool and
+// aln_trace_read do for the calling thread.  The serial scan and a
+// teardown, once a call each, add to the table directly.
+"""),
+        ("""extern std::atomic<long long> solve_prof_ns[8];
+extern const char *const solve_prof_names[8];
+bool solve_prof_on();
+// RAII accumulator for one slot (no-op when ALN_SOLVE_PROF unset)
+struct SolveProfScope {
+""",
+         """enum TraceSlot {
+    // sub-slots of a solve (solve_contig / solve_from_graph, wherever it
+    // runs): graph build, topo order and anomaly floor, walk DP, the
+    // unique-walk rows, lazy enumeration, selection
+    kSolveBuild, kTopo, kWalkDp, kFastRows, kLazyEnum, kSelect,
+    kParse,     // record and cs parse (parse workers)
+    kFormat,    // one contig's output rows formatted
+    kScan,      // read_paf's serial scan, wall time
+    kBuild,     // the exporter's graph build with ranks (parse workers)
+    kFast,      // a device-gated contig: path chase and rows
+    kFallback,  // a contig the device gated out, solved on the host
+    kFlush,     // flush_three, wall time
+    kSolve,     // the exporter's host solve of one contig
+    kTeardown,  // one background teardown, wall time, counted at its end
+    kTraceSlots
+};
+extern const char *const trace_names[kTraceSlots];
+extern std::atomic<bool> trace_flag;
+inline bool trace_on() { return trace_flag.load(std::memory_order_relaxed); }
+inline long long trace_clock_ns() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+        std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+void trace_add(int slot, long long ns);    // to this thread's sums
+void trace_count(int slot, long long ns);  // to the table
+void trace_flush();                        // this thread's sums to the table
+// flushes this thread, then reads the table into ns[], n[] and resets it
+void trace_take(long long *ns, long long *n);
+// one timed scope of ``slot``, added to this thread's sums
+struct TraceScope {
+"""),
+        ("""    bool on;
+    std::chrono::steady_clock::time_point t0;
+    explicit SolveProfScope(int s)
+        : slot(s), on(solve_prof_on()),
+          t0(on ? std::chrono::steady_clock::now()
+                : std::chrono::steady_clock::time_point{}) {}
+    ~SolveProfScope() {
+        if (on)
+            solve_prof_ns[slot].fetch_add(
+                std::chrono::duration_cast<std::chrono::nanoseconds>(
+                    std::chrono::steady_clock::now() - t0).count(),
+                std::memory_order_relaxed);
+""",
+         """    long long t0;
+    explicit TraceScope(int s)
+        : slot(trace_on() ? s : -1), t0(slot < 0 ? 0 : trace_clock_ns()) {}
+    ~TraceScope() {
+        if (slot >= 0) trace_add(slot, trace_clock_ns() - t0);
+"""),
+    ),
+}
+
+
 def test_native_copy_sources_match():
-    """The copied C++ sources are the JAX package's, byte for byte."""
+    """The copied C++ sources are the JAX package's, byte for byte, apart
+    from the edits listed in NATIVE_SOURCE_EDITS."""
     jsrc = REPO / "alignasm_tpu" / "native" / "src"
     tsrc = REPO / "alignasm_tpu_torch" / "native" / "src"
     names = sorted(p.name for p in jsrc.iterdir() if p.suffix in (".cc", ".h"))
     assert names == sorted(p.name for p in tsrc.iterdir())
+    assert set(NATIVE_SOURCE_EDITS) <= set(names)
     for n in names:
-        assert (jsrc / n).read_bytes() == (tsrc / n).read_bytes(), n
+        text = (jsrc / n).read_bytes().decode()
+        for old, new in NATIVE_SOURCE_EDITS.get(n, ()):
+            assert text.count(old) == 1, (n, old)
+            text = text.replace(old, new)
+        assert (tsrc / n).read_bytes().decode() == text, n
 
 
 # The port's copies of the JAX package's JAX-free Python modules: each is
@@ -394,7 +925,8 @@ COPIES = (
     "testing/realism_stats.py",
 )
 # native/__init__.py: the library builds into alignasm_tpu_torch/build/
-# under a hash of its sources and flags instead of next to the sources.
+# under a hash of its sources and flags instead of next to the sources,
+# and binds the counter table of NATIVE_SOURCE_EDITS.
 NATIVE_EDITS = (
     ("""The shared library compiles on first use (g++ -O2, ~seconds) and is
 cached next to the sources; rebuilds when any source is newer.
@@ -448,6 +980,47 @@ library in the same process.
         lib = ctypes.CDLL(str(_LIB))
 """, """        lib = ctypes.CDLL(str(build()))
 """),
+    # the counter table's bindings: native.trace and native.trace_read
+    ('        _lib = lib\n',
+     """        lib.aln_trace.argtypes = [ctypes.c_int]
+        lib.aln_trace.restype = None
+        lib.aln_trace_slots.argtypes = []
+        lib.aln_trace_slots.restype = ctypes.c_int
+        lib.aln_trace_name.argtypes = [ctypes.c_int]
+        lib.aln_trace_name.restype = ctypes.c_char_p
+        lib.aln_trace_read.argtypes = [llp, llp]
+        lib.aln_trace_read.restype = None
+        _lib = lib
+"""),
+    ("""
+
+class GraphExporter:
+""",
+     '''
+
+def trace(on: bool) -> None:
+    """Switch the host plane's counter table on or off (it starts off).
+    While it is off the C++ plane reads no clock for it."""
+    _ensure_lib().aln_trace(1 if on else 0)
+
+
+def trace_read() -> dict:
+    """The counter table since the last read, then reset: ``{slot:
+    (seconds, count)}`` for every slot of ``src/solver.h``'s
+    ``TraceSlot``, (0.0, 0) where a slot counted nothing.  Seconds are
+    summed over threads, except the wall-time slots ``scan``, ``flush``
+    and ``teardown``."""
+    lib = _ensure_lib()
+    k = lib.aln_trace_slots()
+    ns = (ctypes.c_longlong * k)()
+    n = (ctypes.c_longlong * k)()
+    lib.aln_trace_read(ns, n)
+    return {lib.aln_trace_name(i).decode(): (ns[i] / 1e9, n[i])
+            for i in range(k)}
+
+
+class GraphExporter:
+'''),
 )
 
 
@@ -488,7 +1061,8 @@ def test_synth_copy_text_adds_only_chain_contig():
 
 def test_native_bindings_copy_differs_only_in_its_build():
     """The native bindings' copy is the original with the listed edits to
-    where and how the library is built, and nothing else."""
+    where and how the library is built and the counter table's bindings,
+    and nothing else."""
     text = _prefixed("native/__init__.py")
     for old, new in NATIVE_EDITS:
         assert text.count(old) == 1, old

@@ -366,7 +366,8 @@ def test_never_routing_writes_native_files(tmp_path, name):
 def test_never_routing_in_memory_matches_jax_engine():
     """Without output files every contig solves on the exporter's native
     plane: results equal to the JAX engine's, its stats keys
-    (``cost_model`` among them), nothing on the device."""
+    (``cost_model`` among them) and the port's stage keys, nothing on the
+    device."""
     from alignasm_tpu.runtime.scheduler import solve_dataset_tpu
 
     paths = (str(DATA / "synth_hard.paf"), None)
@@ -375,7 +376,8 @@ def test_never_routing_in_memory_matches_jax_engine():
     want = solve_dataset_tpu(None, NEVER, src_paths=paths)
     jstats = solve_dataset_tpu.last_stats
     assert repr(got) == repr(want)  # a dataclass repr names no module
-    assert set(stats) == set(jstats)
+    # and the keys of the port's own stage spans (runtime/tracing.py)
+    assert set(stats) == set(jstats) | {"bucket_s", "remaining_s", "close_s"}
     assert stats["routed"] == "native-plane" and stats["device"] == 0
     for key in ("native_direct", "singleton", "oversize", "n_contigs"):
         assert stats[key] == jstats[key], key
