@@ -5,10 +5,10 @@ same comparison.
     python3 -m benchmark.control --workload NAME --seeds S [S ...] \\
         [--sig-bits 24 11]
 
-For each seed it makes the cell's corpus (cached as a run caches it),
-computes the exact reference and, for each significand (24: float32, the
-nearest precision below the configuration's exact int32; 11: float16),
-the gate rows with every path sum rounded to it.  Those rows stand in
+For each seed it makes the cell's corpus and alt PAF (cached as a run
+caches them), computes the exact reference and, for each significand (24:
+float32, the nearest precision below the configuration's exact int32; 11:
+float16), the gate rows with every path sum rounded to it.  Those rows stand in
 for the device's, with the count of their fast flags for the program's
 ``device`` count, and ``check.compare`` gives the numbers the run would
 print; the files and the passes are left out (the control only decides
@@ -60,12 +60,14 @@ def main(argv=None) -> int:
     workers = os.cpu_count() or 1
     for seed in args.seeds:
         seed %= 2**64
-        _path, text = run.corpus(args.workload, spec["traffic"],
-                                 spec["config"], seed, run.CACHE)
-        ref = run.reference(args.workload, fields, seed, text, run.CACHE,
-                            workers)
+        paf, text = run.corpus(args.workload, spec["traffic"],
+                               spec["config"], seed, run.CACHE)
+        _alt, alt_text = run.alt_corpus(paf, spec["traffic"], spec["config"],
+                                        seed, text)
+        ref = run.reference(fields, paf, text, alt_text, workers)
         for bits in args.sig_bits:
-            low = solve.compute(text, cfg, workers, sig_bits=bits)
+            low = solve.compute(text, cfg, workers, sig_bits=bits,
+                                alt_text=alt_text)
             print(json.dumps({"workload": args.workload, "seed": seed,
                               "sig_bits": bits,
                               **control_numbers(ref, low)}), flush=True)

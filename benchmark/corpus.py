@@ -29,6 +29,24 @@ A traffic file (``benchmark/traffic/<name>.json``) names a ``family``:
 * ``chains``: one chain contig per entry of ``segments`` (``_chain_contig``),
   named ``chain<k>``, spanning ``span_share`` of the chromosome named by
   the same entry of the configuration's ``chromosomes``.
+
+A traffic may also carry an ``alt`` block: then ``generate_alt`` makes the
+alt PAF (``-a``) of the main corpus, in the shape of synth's
+``generate_alt_paf`` at the genome's widths.  Groups of re-aligned contig
+fragments, query names ``<ctg>:<start + 1>-<end>``, come out contig-sorted:
+
+* ``contig_share`` of the contigs get ``groups`` [lo, hi] groups each, of
+  ``records_per_group`` [lo, hi] records;
+* a group's fragment is log-uniform over ``fragment`` [lo, hi] bases, and
+  lies in the contig's unaligned query span past its last record (reaching
+  back into the records where that span is too short for the groups);
+* ``pass_share`` of the groups have only records whose ``aln_len /
+  qry_total`` exceeds the configuration's ``alt_baseline``, so every one
+  joins its contig; the others only records with a positive ratio at or
+  below it, so the merge appends the best of them;
+* ``near_share`` of the records align on the chromosome and strand of the
+  contig's last record, a log-uniform ``sv_gap`` past its reference end,
+  where they can join a path; the rest on a chromosome drawn by length.
 """
 
 from __future__ import annotations
@@ -36,6 +54,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from benchmark.reference.config import DEFAULT_CONFIG
 
 _BASES = np.frombuffer(b"acgt", np.uint8)
 _RUN_HI = 500          # match runs of 1 to _RUN_HI - 1 bases
@@ -71,10 +91,12 @@ class _Draws:
 class _Pieces:
     """The cs pool of one corpus: pieces of one (match run, event) pair and
     of ``_BIG`` pairs, each with its (query, reference, match, alignment)
-    lengths, and a stream of draws of them."""
+    lengths, and a stream of draws of them (from ``draws``, else from the
+    pool's own ``rng``)."""
 
-    def __init__(self, rng: np.random.Generator):
-        self._rng = rng
+    def __init__(self, rng: np.random.Generator,
+                 draws: np.random.Generator | None = None):
+        self._rng = rng if draws is None else draws
         n = _POOL * (1 + _BIG)
         runs = rng.integers(1, _RUN_HI, n)
         kind = rng.random(n)
@@ -275,3 +297,112 @@ def generate(traffic: dict, seed: int, deployment: dict) -> str:
     else:
         raise ValueError(f"unknown traffic family {traffic['family']!r}")
     return "\n".join(lines) + "\n"
+
+
+def _last_records(text: str) -> list:
+    """Per contig of the main PAF, in file order: (name, query length as
+    its last record gives it, the fields of the record whose query end is
+    largest)."""
+    out = []
+    for line in text.splitlines():
+        f = line.split("\t")
+        if not out or out[-1][0] != f[0]:
+            out.append([f[0], 0, f])
+        last = out[-1]
+        last[1] = int(f[1])
+        if int(f[3]) > int(last[2][3]):
+            last[2] = f
+    return out
+
+
+def _share(rng: np.random.Generator, n: int, share: float) -> list:
+    """``n`` flags, ``round(share * n)`` of them set, in a random order."""
+    flags = [k < round(share * n) for k in range(n)]
+    rng.shuffle(flags)
+    return flags
+
+
+def _alt_plan(shape: int, n_contigs: int, alt: dict) -> list:
+    """Which contigs get groups, and each group's (passes, near flag a
+    record), from the traffic's shape seed alone."""
+    rng = np.random.default_rng([shape, 0xA1])
+    chosen = sorted(rng.choice(n_contigs, round(alt["contig_share"]
+                                                * n_contigs), replace=False))
+    g_lo, g_hi = alt["groups"]
+    r_lo, r_hi = alt["records_per_group"]
+    sizes = [[int(r) for r in rng.integers(r_lo, r_hi + 1,
+                                           int(rng.integers(g_lo, g_hi + 1)))]
+             for _ in chosen]
+    passes = iter(_share(rng, sum(map(len, sizes)), alt["pass_share"]))
+    near = iter(_share(rng, sum(map(sum, sizes)), alt["near_share"]))
+    return [(int(ci), [(next(passes), [next(near) for _ in range(n)])
+                       for n in groups])
+            for ci, groups in zip(chosen, sizes)]
+
+
+def _ratio_bounds(frag: int, baseline: float) -> tuple[int, int]:
+    """The largest alignment length whose ratio to ``frag`` is at most
+    ``baseline``, and the least whose ratio exceeds it (as the merge
+    divides)."""
+    low = int(baseline * frag)
+    while low > 0 and low / frag > baseline:
+        low -= 1
+    while (low + 1) / frag <= baseline:
+        low += 1
+    return low, low + 1
+
+
+def generate_alt(traffic: dict, seed: int, deployment: dict,
+                 main_text: str) -> str:
+    """The alt PAF of ``traffic``'s ``alt`` block (see the module's
+    docstring) for the main corpus ``main_text`` of the same traffic, seed
+    and configuration.  Which contigs get groups, how many groups and
+    records, which groups pass and which records lie near come from the
+    traffic's ``shape_seed``; fragments, positions, lengths and cs strings
+    from ``seed``."""
+    alt = traffic["alt"]
+    baseline = float(deployment.get("settings", {}).get(
+        "alt_baseline", DEFAULT_CONFIG.alt_baseline))
+    f_lo, f_hi = alt["fragment"]
+    chrs = [(str(c), int(n))
+            for c, n in deployment["reference_genome"]["chromosomes"]]
+    cum = np.cumsum([n for _c, n in chrs]).astype(np.float64)
+    gap_lo, gap_hi = traffic["sv_gap"]
+    contigs = _last_records(main_text)
+    d = _Draws([seed, 0xA2])
+    # the main corpus's pool of pieces, drawn from in a stream of its own
+    pieces = _Pieces(np.random.default_rng([seed, 0xC5]),
+                     np.random.default_rng([seed, 0xA3]))
+    lines: list = []
+    for ci, groups in _alt_plan(traffic["shape_seed"], len(contigs), alt):
+        name, qry_total, last = contigs[ci]
+        g = len(groups)
+        # a slot of at least f_lo bases a group, in the unaligned tail
+        lo = max(0, min(int(last[3]), qry_total - g * f_lo))
+        slot = (qry_total - lo) // g
+        for k, (passes, near) in enumerate(groups):
+            off = lo + k * slot + d.int(0, slot // 2 + 1)
+            frag = min(d.log(f_lo, f_hi), qry_total - off)
+            at_most, above = _ratio_bounds(frag, baseline)
+            if at_most < 1 or above > frag:
+                raise ValueError(f"{name}: a fragment of {frag} bases holds "
+                                 f"no record on both sides of {baseline}")
+            qry_name = f"{name}:{off + 1}-{off + frag}"
+            for is_near in near:
+                aln = d.int(above, frag + 1) if passes \
+                    else d.int(max(1, at_most // 4), at_most + 1)
+                ref_name, ref_total = last[5], int(last[6])
+                fwd = last[4] == "+"
+                gap = d.log(gap_lo, gap_hi)
+                ref_pos = int(last[8]) + gap if fwd \
+                    else int(last[7]) - gap - aln
+                if not is_near or not 0 <= ref_pos <= ref_total - aln:
+                    ref_name, ref_total = _by_length(d, chrs, cum)
+                    fwd = d.u() < 0.5
+                    ref_pos = d.int(0, ref_total - aln)
+                recs: list = []
+                _record(pieces, recs, qry_name, d.int(0, frag - aln + 1), aln,
+                        ref_name, ref_total, ref_pos, fwd,
+                        _mapq(d, (0, 1, 20, 60), (0.1, 0.2, 0.4, 1.0)))
+                lines.append(_line(recs[0], frag))
+    return "\n".join(lines) + "\n" if lines else ""

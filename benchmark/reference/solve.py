@@ -3,7 +3,10 @@
 
 For every contig: its record count, whether the device route takes it
 (``dag``), and then its gate row, dest position, vertex and edge counts,
-and the lines the exact engine writes for it in each of the three files.  Workers are spawned
+and the lines the exact engine writes for it in each of the three files.
+With an alt PAF, each contig's alt records are merged first, as
+``paf.merge_alt_paf`` merges them over the whole corpus, so all of these
+include them.  Workers are spawned
 (``multiprocessing.get_context("spawn")``) and import only this package,
 numpy and the standard library.
 """
@@ -22,9 +25,10 @@ from benchmark.reference.config import AlignasmConfig
 from benchmark.reference.exact import solve_contig, solve_from_graph
 from benchmark.reference.graph import build_graph
 from benchmark.reference.paf import (
-    ChrTable, _parse_record_fields, format_output_row,
+    PAF_ALN_LEN, PAF_QRY_CHR, PAF_QRY_TOT, ChrTable, PafParseError,
+    _parse_alt_query_name, _parse_record_fields, format_output_row,
 )
-from benchmark.reference.records import TYPE_MAIN
+from benchmark.reference.records import TYPE_ALT, TYPE_MAIN
 
 def split_contigs(text: str):
     """[(name, first row index, lines)] in file order, a contig being a run
@@ -47,6 +51,47 @@ def split_contigs(text: str):
     return groups
 
 
+def merge_alt(groups, alt_text: str, baseline: float) -> list:
+    """Per contig of ``groups`` (``split_contigs``), the alt records
+    ``paf.merge_alt_paf`` appends to it, in order, as (line, query offset,
+    alt row): a name maps to its last contig, every alt line takes the next
+    row, a group (a run of one contig and offset) appends each record whose
+    ``aln_len / qry_total`` exceeds ``baseline`` or, where none does, the
+    first of its best ratio."""
+    paf_map = {name: i for i, (name, _first, _lines) in enumerate(groups)}
+    merged = [[] for _ in groups]
+    group, passed, best, best_ratio = None, False, None, 0.0
+
+    def flush():
+        if group is None or passed:
+            return
+        if best is None:
+            raise PafParseError(
+                "alt group has no record with positive aln_len/qry_total")
+        merged[paf_map[group[0]]].append(best)
+
+    row = 0
+    for line in alt_text.split("\n"):
+        line = line.rstrip("\r")
+        if not line:
+            continue
+        fields = line.split("\t")
+        real, offset = _parse_alt_query_name(fields[PAF_QRY_CHR])
+        target = merged[paf_map[real]]
+        if (real, offset) != group:
+            flush()
+            group, passed, best, best_ratio = (real, offset), False, None, 0.0
+        ratio = float(fields[PAF_ALN_LEN]) / float(fields[PAF_QRY_TOT])
+        if ratio > best_ratio:
+            best_ratio, best = ratio, (line, offset, row)
+        if ratio > baseline:
+            target.append((line, offset, row))
+            passed = True
+        row += 1
+    flush()
+    return merged
+
+
 def _contig_lines(name, records, chr_table, outs):
     """The three files' lines of one contig, as ``paf.write_outputs``
     writes them (the .all file's groups named ``<name>.<k>``)."""
@@ -63,15 +108,15 @@ def _contig_lines(name, records, chr_table, outs):
 
 
 def _solve_group(args):
-    """One worker task: a list of (contig index, name, first row, lines)
-    -> per contig its device-layer facts and, unless ``sig_bits`` rounds
-    the sums, its lines."""
+    """One worker task: a list of (contig index, name, first row, lines,
+    alt records) -> per contig its device-layer facts and, unless
+    ``sig_bits`` rounds the sums, its lines."""
     cfg_fields, sig_bits, items = args
     cfg = AlignasmConfig(**cfg_fields)
     max_records = max(cfg.max_device_records, min(cfg.device_max_v, 32767))
     cap = min(cfg.device_max_v, 32767)
     res = []
-    for i, name, first, lines in items:
+    for i, name, first, lines, alts in items:
         chr_table = ChrTable()
         records = []
         for k, line in enumerate(lines):
@@ -79,6 +124,14 @@ def _solve_group(args):
             rec.paf_index = i
             rec.ctg_index = k
             rec.original_cord = (TYPE_MAIN, first + k)
+            records.append(rec)
+        for line, offset, row in alts:
+            rec = _parse_record_fields(line.split("\t"), chr_table,
+                                       qry_offset=offset)
+            rec.paf_index = i
+            rec.qry_total_length = records[len(lines) - 1].qry_total_length
+            rec.ctg_index = len(records)
+            rec.original_cord = (TYPE_ALT, row)
             records.append(rec)
         item = {"i": i, "n_records": len(records), "eligible": False}
         g = build_graph(records, cfg) if len(records) > 1 else None
@@ -97,31 +150,33 @@ def _solve_group(args):
     return res
 
 
-def _tasks(groups, n_tasks: int):
+def _tasks(groups, alts, n_tasks: int):
     """Contigs dealt into ``n_tasks`` lists of about equal cost, the
     costliest first."""
-    cost = [len(g[2]) ** 1.5 for g in groups]
+    cost = [(len(g[2]) + len(a)) ** 1.5 for g, a in zip(groups, alts)]
     order = sorted(range(len(groups)), key=lambda i: -cost[i])
     tasks = [[] for _ in range(n_tasks)]
     load = [0.0] * n_tasks
     for i in order:
         t = min(range(n_tasks), key=load.__getitem__)
         name, first, lines = groups[i]
-        tasks[t].append((i, name, first, lines))
+        tasks[t].append((i, name, first, lines, alts[i]))
         load[t] += cost[i]
     return [t for t in tasks if t]
 
 
 def compute(text: str, cfg: AlignasmConfig, workers: int,
-            sig_bits=None) -> dict:
-    """The reference of one corpus (see ``save`` for its layout).
-    ``sig_bits`` rounds the gate rows' path sums (``dag.gate_row``) and
-    leaves the files out: the control, never the reference."""
+            sig_bits=None, alt_text: str | None = None) -> dict:
+    """The reference of one corpus (see ``save`` for its layout), with the
+    alt PAF ``alt_text`` merged where given.  ``sig_bits`` rounds the gate
+    rows' path sums (``dag.gate_row``) and leaves the files out: the
+    control, never the reference."""
     groups = split_contigs(text)
+    alts = merge_alt(groups, alt_text or "", cfg.alt_baseline)
     cfg_fields = {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
     workers = max(1, workers)
     tasks = [(cfg_fields, sig_bits, t)
-             for t in _tasks(groups, workers * 4)]
+             for t in _tasks(groups, alts, workers * 4)]
     if workers == 1:
         parts = [_solve_group(t) for t in tasks]
     else:

@@ -7,19 +7,22 @@ from the root of a checkout.  The cell (``BENCHMARK.json``'s
 the program's settings) and a traffic mix (``benchmark/traffic/<name>.json``:
 the corpus, ``benchmark/corpus.py``).  A run:
 
-1. makes the corpus from the seed, or finds it cached by (cell, seed) under
-   ``benchmark/.cache/`` (timed apart from the set-up);
+1. makes the corpus from the seed, and the alt PAF where the traffic has an
+   ``alt`` block, or finds them cached by (cell, seed, traffic and
+   configuration) under ``benchmark/.cache/`` (timed apart from the
+   set-up);
 2. sets up the program (imports, the C++ plane's and the kernels' builds on
    a first run, the CUDA context) and runs ``warm_passes`` whole passes;
 3. runs whole passes back to back for ``--seconds``, a closed loop of one
    client: a pass is one user job, ``solve_dataset_torch(None, cfg,
-   src_paths=(paf, None), write_prefix=..., device="cuda:0")`` with the
-   three output files on named pipes (``benchmark/sink.py``), until its
+   src_paths=(paf, alt or None), write_prefix=..., device="cuda:0")`` with
+   the three output files on named pipes (``benchmark/sink.py``), until its
    files are drained and the native plane's teardown has ended;
 4. checks every contig's lines in the newest pass's three files, the
    gate rows the device returned and which contigs it finished against the
-   plain reference (``benchmark/reference``, cached by (cell, seed)), and
-   every pass against the newest (``benchmark/check.py``);
+   plain reference (``benchmark/reference``, the alt PAF merged, cached
+   with the corpus), and every pass against the newest
+   (``benchmark/check.py``);
 5. prints the result as the last line of standard output, and each
    compared number beside its limit as the last lines of standard error.
 
@@ -37,8 +40,10 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import collections  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
+import hashlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
@@ -124,25 +129,45 @@ def _write_atomic(path: pathlib.Path, text: str) -> None:
 def corpus(name: str, traffic: dict, config: dict, seed: int,
            cache: pathlib.Path):
     """(path, text) of the cell's corpus for ``seed``, made once and
-    cached."""
+    cached in a directory of (cell, seed, traffic and configuration), so
+    corpora of one cell and seed with and without an alt PAF stay
+    apart."""
     from benchmark.corpus import generate
 
-    path = cache / name / str(seed) / "corpus.paf"
+    key = hashlib.sha256(json.dumps([traffic, config], sort_keys=True)
+                         .encode()).hexdigest()[:16]
+    path = cache / name / str(seed) / key / "corpus.paf"
     if not path.exists():
         _write_atomic(path, generate(traffic, seed, config))
     return path, path.read_text()
 
 
-def reference(name, cfg_fields, seed, text, cache, workers):
-    """The plain reference of the corpus, computed once and cached."""
+def alt_corpus(paf: pathlib.Path, traffic: dict, config: dict, seed: int,
+               text: str):
+    """(path, text) of the alt PAF beside the corpus ``paf`` (whose text is
+    ``text``), made once and cached, where the traffic has an ``alt``
+    block; else (None, None)."""
+    from benchmark.corpus import generate_alt
+
+    if "alt" not in traffic:
+        return None, None
+    path = paf.with_name("corpus.alt.paf")
+    if not path.exists():
+        _write_atomic(path, generate_alt(traffic, seed, config, text))
+    return path, path.read_text()
+
+
+def reference(cfg_fields, paf, text, alt_text, workers):
+    """The plain reference of the corpus ``paf`` and its alt PAF, computed
+    once and cached beside them."""
     from benchmark.reference import solve
     from benchmark.reference.config import AlignasmConfig
 
-    where = cache / name / str(seed)
-    ref = solve.load(where)
+    ref = solve.load(paf.parent)
     if ref is None:
-        ref = solve.compute(text, AlignasmConfig(**cfg_fields), workers)
-        solve.save(ref, where)
+        ref = solve.compute(text, AlignasmConfig(**cfg_fields), workers,
+                            alt_text=alt_text)
+        solve.save(ref, paf.parent)
     return ref
 
 
@@ -190,8 +215,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     t0 = time.perf_counter()
     paf, text = corpus(workload, traffic, config, seed, cache)
+    alt, alt_text = alt_corpus(paf, traffic, config, seed, text)
     corpus_s = time.perf_counter() - t0
     n_contigs = sum(1 for _ in _contig_names(text))
+    src_paths = (str(paf), str(alt) if alt else None)
 
     from alignasm_tpu_torch import native
     from alignasm_tpu_torch.config import DEFAULT_CONFIG
@@ -216,7 +243,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         def one_pass():
             t = time.perf_counter()
             with record_function(PASS):
-                solve_dataset_torch(None, cfg, src_paths=(str(paf), None),
+                solve_dataset_torch(None, cfg, src_paths=src_paths,
                                     write_prefix=sink.prefix, device=device)
                 with record_function("drain pipes"):
                     sizes = sink.collect()
@@ -301,7 +328,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     t0 = time.perf_counter()
     cfg_fields = {f: getattr(cfg, f) for f in cfg.__dataclass_fields__}
-    ref = reference(workload, cfg_fields, seed, text, cache,
+    ref = reference(cfg_fields, paf, text, alt_text,
                     workers or os.cpu_count() or 1)
     ref_s = time.perf_counter() - t0
     numbers = check.compare(
@@ -353,8 +380,19 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         f"{k} {1e3 * nearest_rank([s_[k] for s_ in stats if k in s_], 0.5):.3f}"
         for k in ("pack_s", "launch_s", "sync_s", "cfinish_s", "write_s")
         if any(k in s_ for s_ in stats)))
+    if alt_text is not None:
+        alt_rows = alt_text.splitlines()
+        groups = len({ln.split("\t", 1)[0] for ln in alt_rows})
+        merged = int(ref["n_records"].sum()) - text.count("\n")
+        log(f"alt PAF: {len(alt_rows)} records in {groups} groups a pass, "
+            f"{merged} of them merged into their contigs")
+    buckets = collections.Counter()
+    for idx, _dp, V in last_rows:
+        buckets[V] += len(idx)
+    log("contigs a V bucket in the newest pass: " + " ".join(
+        f"V {V} {n}" for V, n in sorted(buckets.items())))
     log(f"bytes this process wrote to storage: {_bytes_written()}; the "
-        f"cache for (cell, seed) holds {_du(cache / workload / str(seed))}")
+        f"cache for (cell, seed, traffic) holds {_du(paf.parent)}")
     return result, check.lines(numbers)
 
 

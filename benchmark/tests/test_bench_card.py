@@ -4,7 +4,7 @@ benchmark/tests -m gpu`` on a machine with one."""
 import pytest
 
 from benchmark import run
-from benchmark.tests._small import small_traffic
+from benchmark.tests._small import alt_traffic, small_traffic
 
 
 @pytest.mark.gpu
@@ -20,3 +20,16 @@ def test_a_cell_runs_correct_on_the_card(workload, tmp_path):
     assert result["correct"], lines
     assert result["device"]["platform"] == "gpu"
     assert result["device"]["busy_s"] > 0
+
+
+@pytest.mark.gpu
+def test_an_alt_traffic_runs_correct_on_the_card(tmp_path):
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card here")
+    result, lines = run.run_cell("karyotype-small", 2**31 + 19, 2.0, False,
+                                 cache=tmp_path / "cache",
+                                 traffic=alt_traffic("karyotype-small"),
+                                 workers=2, log=lambda _m: None)
+    assert result["correct"], lines
+    assert result["device"]["platform"] == "gpu"

@@ -1,6 +1,7 @@
 """The generator copy against synth's statistics, at a small size, and its
 widths against the configuration's genome."""
 
+import hashlib
 import re
 import statistics
 
@@ -9,7 +10,9 @@ import pytest
 from alignasm_tpu_torch.testing.realism_stats import measure_realism_stats
 from alignasm_tpu_torch.testing.synth import _chain_contig, generate_paf
 from benchmark import run
-from benchmark.corpus import generate
+from benchmark.corpus import generate, generate_alt
+from benchmark.reference.config import DEFAULT_CONFIG
+from benchmark.tests._small import ALT, alt_traffic, config, small_traffic
 
 KARYOTYPE = run.load_cell("karyotype-small")["config"]
 CHAINS = run.load_cell("chromscale-chains")["config"]
@@ -102,3 +105,92 @@ def test_a_cell_has_the_genome_widths(workload):
         for k, c in enumerate(cfg["chromosomes"]):
             assert ends[f"chain{k}"] == pytest.approx(
                 tr["span_share"] * genome[c], rel=0.1)
+
+
+# sha256 of each cell's corpus at _small.py's sizes and seed 2**31 + 5, as
+# the generator made them before it had the alt block
+PINNED = {
+    "karyotype-small":
+        "0013d93ddc9cfd239415a35c25706791df79d4c424b77e51343e53d0e1ee6190",
+    "chromscale-chains":
+        "139b490f803db645fbd56654c8ff010ea7d37969eb35caae9c3a06c60246aefa",
+}
+
+
+@pytest.mark.parametrize("workload", sorted(PINNED))
+def test_a_cell_corpus_is_pinned(workload):
+    text = generate(small_traffic(workload), 2**31 + 5, config(workload))
+    assert hashlib.sha256(text.encode()).hexdigest() == PINNED[workload]
+
+
+def _alt_groups(workload, seed):
+    """The main corpus's contigs {name: (order, query length)} and the alt
+    PAF's groups [(contig, offset, fragment, records as field lists)]."""
+    tr, cfg = alt_traffic(workload), config(workload)
+    main = generate(tr, seed, cfg)
+    contigs = {}
+    for line in main.splitlines():
+        f = line.split("\t")
+        contigs[f[0]] = (contigs.get(f[0], (len(contigs),))[0], int(f[1]))
+    groups = []
+    for line in generate_alt(tr, seed, cfg, main).splitlines():
+        f = line.split("\t")
+        if not groups or groups[-1][4] != f[0]:
+            ctg, span = f[0].split(":")
+            start, end = (int(x) for x in span.split("-"))
+            groups.append((ctg, start - 1, end - start + 1, [], f[0]))
+        groups[-1][3].append(f)
+    return contigs, groups
+
+
+def test_the_alt_generator_has_its_shape():
+    """Contig-sorted groups inside their contigs, each with a record of a
+    positive ratio, ``pass_share`` of them passing, and the same counts for
+    every seed."""
+    baseline = DEFAULT_CONFIG.alt_baseline
+    genome = dict(config("karyotype-small")["reference_genome"]
+                  ["chromosomes"])
+    shapes = []
+    for seed in (2**31 + 5, 17):
+        contigs, groups = _alt_groups("karyotype-small", seed)
+        order = [contigs[g[0]][0] for g in groups]
+        assert order == sorted(order)
+        assert len(set(order)) == round(ALT["contig_share"] * len(contigs))
+        passing = 0
+        for ctg, off, frag, recs, _name in groups:
+            assert 0 <= off and off + frag <= contigs[ctg][1]
+            ratios = [int(f[10]) / int(f[1]) for f in recs]
+            assert max(ratios) > 0
+            passing += max(ratios) > baseline
+            for f in recs:
+                assert int(f[1]) == frag
+                assert 0 <= int(f[2]) < int(f[3]) <= frag
+                assert int(f[6]) == genome[f[5]]
+                assert 0 <= int(f[7]) < int(f[8]) <= genome[f[5]]
+        assert passing / len(groups) == pytest.approx(ALT["pass_share"],
+                                                      abs=0.15)
+        shapes.append([(g[0], len(g[3])) for g in groups])
+    assert shapes[0] and shapes[0] == shapes[1]
+
+
+def test_some_alt_records_lie_near_their_contig():
+    """``near_share`` of the records follow the contig's last record on its
+    chromosome and strand, within ``sv_gap`` past its reference end."""
+    tr, cfg = alt_traffic("karyotype-small"), config("karyotype-small")
+    main = generate(tr, 3, cfg)
+    last = {}
+    for line in main.splitlines():
+        f = line.split("\t")
+        if f[0] not in last or int(f[3]) > int(last[f[0]][3]):
+            last[f[0]] = f
+    gap_lo, gap_hi = tr["sv_gap"]
+    near = total = 0
+    for line in generate_alt(tr, 3, cfg, main).splitlines():
+        f = line.split("\t")
+        m = last[f[0].split(":")[0]]
+        total += 1
+        if f[5] == m[5] and f[4] == m[4]:
+            gap = int(f[7]) - int(m[8]) if f[4] == "+" \
+                else int(m[7]) - int(f[8])
+            near += gap_lo <= gap <= gap_hi
+    assert near / total == pytest.approx(ALT["near_share"], abs=0.1)

@@ -18,7 +18,9 @@ from benchmark.corpus import generate
 from benchmark.reference import solve
 from benchmark.reference.config import DEFAULT_CONFIG as REF_CFG
 from benchmark.sink import SUFFIXES, PipeSink
-from benchmark.tests._small import config, cpu_run, small_traffic
+from benchmark.tests._small import (
+    alt_traffic, config, cpu_run, small_traffic,
+)
 
 CELLS = ["karyotype-small", "chromscale-chains"]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
@@ -117,6 +119,35 @@ def test_a_broken_timed_path_is_not_correct(fault, workload, monkeypatch,
         {"unchanged": _unchanged, "half_batch": _half_batch,
          "answer_altered": _answer_altered}[fault](monkeypatch)
     result, lines = cpu_run(workload, tmp_path)
+    assert not result["correct"], lines
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_an_alt_traffic_runs_correct(trace, tmp_path):
+    """karyotype-small's traffic with an alt PAF: the timed call passes it,
+    the reference merges it, and the cache keeps it apart from the plain
+    corpus of the same cell and seed."""
+    plain, _ = cpu_run("karyotype-small", tmp_path)
+    result, lines = cpu_run("karyotype-small", tmp_path, trace=bool(trace),
+                            traffic=alt_traffic("karyotype-small"))
+    assert plain["correct"] and result["correct"], lines
+    assert result["attempted"] > 0
+    where = sorted((tmp_path / "cache" / "karyotype-small").glob("*/*"))
+    assert len(where) == 2
+    assert [(w / "corpus.alt.paf").exists() for w in where].count(True) == 1
+
+
+def test_the_alt_dropped_is_not_correct(monkeypatch, tmp_path):
+    """The timed call made without the alt PAF misses the merged records."""
+    orig = scheduler._solve_dataset_torch
+
+    def without_alt(dataset, cfg, src_paths, *a, **k):
+        assert src_paths[1] is not None
+        return orig(dataset, cfg, (src_paths[0], None), *a, **k)
+    monkeypatch.setattr(scheduler, "_solve_dataset_torch", without_alt)
+    result, lines = cpu_run("karyotype-small", tmp_path,
+                            traffic=alt_traffic("karyotype-small"))
+    assert result["checks"]["files_bad"]["value"] > 0, lines
     assert not result["correct"], lines
 
 
