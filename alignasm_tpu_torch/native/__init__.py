@@ -137,6 +137,8 @@ def _ensure_lib():
         lib.aln_num_contigs.argtypes = [ctypes.c_void_p]
         lib.aln_num_contigs.restype = ctypes.c_longlong
         llp = ctypes.POINTER(ctypes.c_longlong)
+        lib.aln_alt_counts.argtypes = [ctypes.c_void_p, llp]
+        lib.aln_alt_counts.restype = None
         lib.aln_run_shard.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_double,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -310,8 +312,10 @@ def trace_read() -> dict:
     """The counter table since the last read, then reset: ``{slot:
     (seconds, count)}`` for every slot of ``src/solver.h``'s
     ``TraceSlot``, (0.0, 0) where a slot counted nothing.  Seconds are
-    summed over threads, except the wall-time slots ``scan``, ``flush``
-    and ``teardown``."""
+    summed over threads, except the wall-time slots ``scan``, ``flush``,
+    ``teardown``, ``alt_merge`` and ``alt_build``.  Only an alt PAF counts
+    the last two: ``alt_merge`` once a merge (an exporter's open, ``run``,
+    a shard), ``alt_build`` once an exporter's open."""
     lib = _ensure_lib()
     k = lib.aln_trace_slots()
     ns = (ctypes.c_longlong * k)()
@@ -358,6 +362,13 @@ class GraphExporter:
 
     def __len__(self):
         return int(self._lib.aln_num_contigs(self._h))
+
+    def alt_counts(self) -> tuple[int, int]:
+        """(alt lines read, records appended to contigs) of the alt
+        merge; (0, 0) without an alt PAF."""
+        out = (ctypes.c_longlong * 2)()
+        self._lib.aln_alt_counts(self._h, out)
+        return int(out[0]), int(out[1])
 
     # ---- bulk device-engine path (no per-contig Python) --------------
 

@@ -217,6 +217,7 @@ void *aln_open2(const char *paf_path, const char *alt_path, double alt_baseline,
             // build must wait for it
             ctx->ds = aln::read_paf(paf_path, nt);
             aln::merge_alt(ctx->ds, alt_path, alt_baseline);
+            aln::TraceWall tw(aln::kAltBuild);
             size_t n = ctx->ds.contigs.size();
             ctx->packed.resize(n);
             std::atomic<size_t> next{0};
@@ -257,6 +258,13 @@ void aln_close(void *h) {
 
 long long aln_num_contigs(void *h) {
     return (long long) ((ExportCtx *) h)->ds.contigs.size();
+}
+
+// the alt merge's alt lines read and records appended, into out[2]
+void aln_alt_counts(void *h, long long *out) {
+    const auto &ds = ((ExportCtx *) h)->ds;
+    out[0] = ds.alt_records;
+    out[1] = ds.alt_merged;
 }
 
 }  // extern "C"

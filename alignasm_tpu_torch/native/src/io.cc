@@ -285,8 +285,12 @@ Dataset read_paf(const std::string &path, int threads, GroupSink *sink,
         if (sink->start) sink->start(ds, n_groups);
         sink->scan_s = std::chrono::duration<double>(
             std::chrono::steady_clock::now() - scan_t0).count();
-        if (trace_on()) trace_count(kScan, (long long) (sink->scan_s * 1e9));
     }
+    // with a sink or without (the alt route's parse)
+    if (trace_on())
+        trace_count(kScan, std::chrono::duration_cast<std::chrono::nanoseconds>(
+                               std::chrono::steady_clock::now() - scan_t0)
+                               .count());
     // sharded parse: only groups owned by this rank get their records
     // parsed (cord_row stays the GLOBAL line index, so xi:Z provenance
     // tags are identical to a full parse)
@@ -733,6 +737,7 @@ Dataset read_paf_range(const std::string &path, int threads,
 
 void merge_alt(Dataset &ds, const std::string &alt_path, double alt_baseline,
                i64 rank, i64 world) {
+    TraceWall tw(kAltMerge);
     ds.alt_buffer = slurp(alt_path);
     if (ds.alt_buffer.empty()) return;
     ds.run_arenas.emplace_back(std::make_unique<RunArena>());
@@ -757,6 +762,7 @@ void merge_alt(Dataset &ds, const std::string &alt_path, double alt_baseline,
         auto &target = ds.contigs[ds.paf_map.at(tar_name)];
         ratio_max.ctg_index = (i32) target.size();
         target.push_back(ratio_max);
+        ds.alt_merged++;
     };
 
     std::vector<std::string_view> f;
@@ -781,6 +787,7 @@ void merge_alt(Dataset &ds, const std::string &alt_path, double alt_baseline,
         bool local = world <= 1
                      || (tgt >= ds.shard_lo && tgt < ds.shard_hi);
         i32 this_row = row++;
+        ds.alt_records++;
 
         if (!tar_init || tar_off != off || tar_name != real) {
             flush();
@@ -810,6 +817,7 @@ void merge_alt(Dataset &ds, const std::string &alt_path, double alt_baseline,
             auto &target = ds.contigs[tgt];
             r.ctg_index = (i32) target.size();
             target.push_back(std::move(r));
+            ds.alt_merged++;
             tar_flag = true;
         }
     });

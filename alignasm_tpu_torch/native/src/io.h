@@ -45,6 +45,8 @@ struct Dataset {
     std::string buffer;       // whole main PAF file (records view into it)
     std::unique_ptr<Mapped> mapped;  // range-mode input (views point here)
     std::string alt_buffer;   // whole alt PAF file
+    // merge_alt's alt lines read and records appended to contigs
+    i64 alt_records = 0, alt_merged = 0;
     std::vector<std::vector<Record>> contigs;
     std::vector<std::string> ctg_names;
     std::vector<std::string> chr_names;               // id -> name

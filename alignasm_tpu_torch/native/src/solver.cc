@@ -1373,7 +1373,7 @@ static std::vector<i64> level_min_sums(const Graph &g, i64 cap,
 const char *const trace_names[kTraceSlots] = {
     "solve_build", "topo", "walk_dp", "fast_rows", "lazy_enum", "select",
     "parse", "format", "scan", "build", "fast", "fallback", "flush", "solve",
-    "teardown"};
+    "teardown", "alt_merge", "alt_build"};
 std::atomic<bool> trace_flag{false};
 namespace {
 std::atomic<long long> trace_ns[kTraceSlots], trace_n[kTraceSlots];

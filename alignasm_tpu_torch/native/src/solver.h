@@ -142,8 +142,9 @@ void build_graph_into(std::vector<Record> &records, const Config &cfg,
 // off a scope reads no clock and adds nothing.  A scope adds to its
 // thread's own sums; trace_flush moves them into the shared table, which
 // each worker thread does once, when it ends, and run_pool and
-// aln_trace_read do for the calling thread.  The serial scan and a
-// teardown, once a call each, add to the table directly.
+// aln_trace_read do for the calling thread.  The serial scan, a
+// teardown and the alt PAF's two serial stages, once a call each, add
+// to the table directly.
 namespace aln {
 enum TraceSlot {
     // sub-slots of a solve (solve_contig / solve_from_graph, wherever it
@@ -159,6 +160,11 @@ enum TraceSlot {
     kFlush,     // flush_three, wall time
     kSolve,     // the exporter's host solve of one contig
     kTeardown,  // one background teardown, wall time, counted at its end
+    // with an alt PAF only, wall time: merge_alt (slurp, parse, group
+    // flush), wherever it runs (the exporter's open, and native.run's
+    // and the sharded run's unfused routes), and the exporter's graph
+    // build, which waits for the merge
+    kAltMerge, kAltBuild,
     kTraceSlots
 };
 extern const char *const trace_names[kTraceSlots];
@@ -181,6 +187,16 @@ struct TraceScope {
         : slot(trace_on() ? s : -1), t0(slot < 0 ? 0 : trace_clock_ns()) {}
     ~TraceScope() {
         if (slot >= 0) trace_add(slot, trace_clock_ns() - t0);
+    }
+};
+// one timed serial stage of ``slot``, added to the table directly
+struct TraceWall {
+    int slot;
+    long long t0;
+    explicit TraceWall(int s)
+        : slot(trace_on() ? s : -1), t0(slot < 0 ? 0 : trace_clock_ns()) {}
+    ~TraceWall() {
+        if (slot >= 0) trace_count(slot, trace_clock_ns() - t0);
     }
 };
 }  // namespace aln

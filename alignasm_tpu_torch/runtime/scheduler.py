@@ -593,6 +593,9 @@ def _solve_torch_native(dataset, cfg: AlignasmConfig, src_paths, write_prefix,
                 stats["oversize"] = int((n_rec > cfg.max_device_records).sum())
                 stats["n_contigs"] = n
                 stats["n_records"] = int(n_rec.sum())
+                if src_paths[1]:
+                    stats["alt_records"], stats["alt_merged"] = \
+                        exporter.alt_counts()
 
             pool = np.arange(n)
             if route.allow_device and len(mesh) > 1:

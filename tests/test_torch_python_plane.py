@@ -378,7 +378,8 @@ def test_native_copy_matches_jax_native_and_goldens(tmp_path, name):
 # aln_trace_read) grown from the solve_prof table in place of the four
 # environment-switched stderr printers (ALN_SOLVE_PROF, ALN_BUILD_PROF,
 # ALN_READ_PROF, ALN_SHARD_PROF) and the clock reads they took whether
-# on or off; ALN_DEBUG_WALKS read once a process.
+# on or off; ALN_DEBUG_WALKS read once a process; two wall-time slots of
+# the alt merge and the build that waits for it, and the merge's counts.
 NATIVE_SOURCE_EDITS = {
     "api.cc": (
         ('                aln::SolveProfScope ps(7);\n',
@@ -601,6 +602,24 @@ const char *aln_trace_name(int slot) {
 
 int aln_prepare_results(void *h) {
 """),
+        # the build that waits for the alt merge, and the merge's counts
+        ('            aln::merge_alt(ctx->ds, alt_path, alt_baseline);\n',
+         """            aln::merge_alt(ctx->ds, alt_path, alt_baseline);
+            aln::TraceWall tw(aln::kAltBuild);
+"""),
+        ("""    return (long long) ((ExportCtx *) h)->ds.contigs.size();
+}
+""",
+         """    return (long long) ((ExportCtx *) h)->ds.contigs.size();
+}
+
+// the alt merge's alt lines read and records appended, into out[2]
+void aln_alt_counts(void *h, long long *out) {
+    const auto &ds = ((ExportCtx *) h)->ds;
+    out[0] = ds.alt_records;
+    out[1] = ds.alt_merged;
+}
+"""),
     ),
     "io.cc": (
         (r"""    auto prof_t0 = std::chrono::steady_clock::now();
@@ -624,8 +643,12 @@ int aln_prepare_results(void *h) {
         ("""    }
     // sharded parse: only groups owned by this rank get their records
 """,
-         """        if (trace_on()) trace_count(kScan, (long long) (sink->scan_s * 1e9));
-    }
+         """    }
+    // with a sink or without (the alt route's parse)
+    if (trace_on())
+        trace_count(kScan, std::chrono::duration_cast<std::chrono::nanoseconds>(
+                               std::chrono::steady_clock::now() - scan_t0)
+                               .count());
     // sharded parse: only groups owned by this rank get their records
 """),
         ('        SolveProfScope ps(6);\n',
@@ -648,6 +671,23 @@ int aln_prepare_results(void *h) {
         fn();
         if (timed) trace_count(kTeardown, trace_clock_ns() - t0);
     });
+"""),
+        # the alt merge: its slot and its counts
+        ('    ds.alt_buffer = slurp(alt_path);\n',
+         """    TraceWall tw(kAltMerge);
+    ds.alt_buffer = slurp(alt_path);
+"""),
+        ('        target.push_back(ratio_max);\n',
+         """        target.push_back(ratio_max);
+        ds.alt_merged++;
+"""),
+        ('        i32 this_row = row++;\n',
+         """        i32 this_row = row++;
+        ds.alt_records++;
+"""),
+        ('            target.push_back(std::move(r));\n',
+         """            target.push_back(std::move(r));
+            ds.alt_merged++;
 """),
     ),
     "solver.cc": (
@@ -730,7 +770,7 @@ bool solve_prof_on() {
          """const char *const trace_names[kTraceSlots] = {
     "solve_build", "topo", "walk_dp", "fast_rows", "lazy_enum", "select",
     "parse", "format", "scan", "build", "fast", "fallback", "flush", "solve",
-    "teardown"};
+    "teardown", "alt_merge", "alt_build"};
 std::atomic<bool> trace_flag{false};
 """),
         ("""struct ProfScope {
@@ -834,8 +874,9 @@ ContigResult solve_contig(std::vector<Record> &records, const Config &cfg) {
 // off a scope reads no clock and adds nothing.  A scope adds to its
 // thread's own sums; trace_flush moves them into the shared table, which
 // each worker thread does once, when it ends, and run_pool and
-// aln_trace_read do for the calling thread.  The serial scan and a
-// teardown, once a call each, add to the table directly.
+// aln_trace_read do for the calling thread.  The serial scan, a
+// teardown and the alt PAF's two serial stages, once a call each, add
+// to the table directly.
 """),
         ("""extern std::atomic<long long> solve_prof_ns[8];
 extern const char *const solve_prof_names[8];
@@ -857,6 +898,11 @@ struct SolveProfScope {
     kFlush,     // flush_three, wall time
     kSolve,     // the exporter's host solve of one contig
     kTeardown,  // one background teardown, wall time, counted at its end
+    // with an alt PAF only, wall time: merge_alt (slurp, parse, group
+    // flush), wherever it runs (the exporter's open, and native.run's
+    // and the sharded run's unfused routes), and the exporter's graph
+    // build, which waits for the merge
+    kAltMerge, kAltBuild,
     kTraceSlots
 };
 extern const char *const trace_names[kTraceSlots];
@@ -892,6 +938,32 @@ struct TraceScope {
         : slot(trace_on() ? s : -1), t0(slot < 0 ? 0 : trace_clock_ns()) {}
     ~TraceScope() {
         if (slot >= 0) trace_add(slot, trace_clock_ns() - t0);
+"""),
+        ("""        if (slot >= 0) trace_add(slot, trace_clock_ns() - t0);
+    }
+};
+""",
+         """        if (slot >= 0) trace_add(slot, trace_clock_ns() - t0);
+    }
+};
+// one timed serial stage of ``slot``, added to the table directly
+struct TraceWall {
+    int slot;
+    long long t0;
+    explicit TraceWall(int s)
+        : slot(trace_on() ? s : -1), t0(slot < 0 ? 0 : trace_clock_ns()) {}
+    ~TraceWall() {
+        if (slot >= 0) trace_count(slot, trace_clock_ns() - t0);
+    }
+};
+"""),
+    ),
+    # the alt merge's counts (Dataset::alt_records, ::alt_merged)
+    "io.h": (
+        ('    std::string alt_buffer;   // whole alt PAF file\n',
+         """    std::string alt_buffer;   // whole alt PAF file
+    // merge_alt's alt lines read and records appended to contigs
+    i64 alt_records = 0, alt_merged = 0;
 """),
     ),
 }
@@ -1008,8 +1080,10 @@ def trace_read() -> dict:
     """The counter table since the last read, then reset: ``{slot:
     (seconds, count)}`` for every slot of ``src/solver.h``'s
     ``TraceSlot``, (0.0, 0) where a slot counted nothing.  Seconds are
-    summed over threads, except the wall-time slots ``scan``, ``flush``
-    and ``teardown``."""
+    summed over threads, except the wall-time slots ``scan``, ``flush``,
+    ``teardown``, ``alt_merge`` and ``alt_build``.  Only an alt PAF counts
+    the last two: ``alt_merge`` once a merge (an exporter's open, ``run``,
+    a shard), ``alt_build`` once an exporter's open."""
     lib = _ensure_lib()
     k = lib.aln_trace_slots()
     ns = (ctypes.c_longlong * k)()
@@ -1020,6 +1094,24 @@ def trace_read() -> dict:
 
 
 class GraphExporter:
+'''),
+    # the alt merge's counts: GraphExporter.alt_counts
+    ("""        lib.aln_num_contigs.restype = ctypes.c_longlong
+        llp = ctypes.POINTER(ctypes.c_longlong)
+""", """        lib.aln_num_contigs.restype = ctypes.c_longlong
+        llp = ctypes.POINTER(ctypes.c_longlong)
+        lib.aln_alt_counts.argtypes = [ctypes.c_void_p, llp]
+        lib.aln_alt_counts.restype = None
+"""),
+    ("""        return int(self._lib.aln_num_contigs(self._h))
+""", '''        return int(self._lib.aln_num_contigs(self._h))
+
+    def alt_counts(self) -> tuple[int, int]:
+        """(alt lines read, records appended to contigs) of the alt
+        merge; (0, 0) without an alt PAF."""
+        out = (ctypes.c_longlong * 2)()
+        self._lib.aln_alt_counts(self._h, out)
+        return int(out[0]), int(out[1])
 '''),
 )
 
@@ -1061,8 +1153,8 @@ def test_synth_copy_text_adds_only_chain_contig():
 
 def test_native_bindings_copy_differs_only_in_its_build():
     """The native bindings' copy is the original with the listed edits to
-    where and how the library is built and the counter table's bindings,
-    and nothing else."""
+    where and how the library is built, the counter table's bindings and
+    the alt merge's counts, and nothing else."""
     text = _prefixed("native/__init__.py")
     for old, new in NATIVE_EDITS:
         assert text.count(old) == 1, old

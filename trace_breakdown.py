@@ -21,7 +21,8 @@ each, the order turning every round: ``off`` (untraced), ``counters``
 (the host plane's counter table on alone, ``native.trace``) and
 ``profiled`` (under ``torch.profiler`` with CPU and CUDA activities, which
 turns the program's spans and the table on).  A pass is the harness's:
-the solve into named pipes, draining them, joining the teardown.  Prints
+the solve of the corpus and its alt PAF, where the traffic has one, into
+named pipes, draining them, joining the teardown.  Prints
 each mode's median, quartiles and count of pass seconds.
 """
 
@@ -105,8 +106,10 @@ def oncost(workload: str, seed: int, rounds: int, passes: int,
     from benchmark.sink import PipeSink
 
     spec = run.load_cell(workload)
-    paf, _text = run.corpus(workload, spec["traffic"], spec["config"], seed,
-                            run.CACHE)
+    paf, text = run.corpus(workload, spec["traffic"], spec["config"], seed,
+                           run.CACHE)
+    alt, _ = run.alt_corpus(paf, spec["traffic"], spec["config"], seed, text)
+    src_paths = (str(paf), str(alt) if alt else None)
     cfg = dataclasses.replace(DEFAULT_CONFIG, **spec["config"]["settings"])
     acts = [ProfilerActivity.CPU]
     if device.startswith("cuda"):
@@ -116,7 +119,7 @@ def oncost(workload: str, seed: int, rounds: int, passes: int,
 
     def one_pass() -> float:
         t = time.perf_counter()
-        solve_dataset_torch(None, cfg, src_paths=(str(paf), None),
+        solve_dataset_torch(None, cfg, src_paths=src_paths,
                             write_prefix=sink.prefix, device=device)
         sink.collect()
         native.drain_teardowns()
